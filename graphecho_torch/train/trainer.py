@@ -1,0 +1,186 @@
+"""Host-side Trainer, port of `graphecho_tpu/train/trainer.py`.
+
+The reference `Trainer` contract (`train_camus_echo.py:45-515`,
+`train_cardiac_uda.py:57-614`):
+
+  * `train()` runs the epoch loop, one train step per batch, and validates
+    after each epoch;
+  * `validation(batches, name, is_video)` accumulates confusion counts with
+    the reference's metric definitions (`train_camus_echo.py:402-417`), prints
+    per-part dice and, for the cardiac variant, leaves out the BG channel.
+
+Losses and counts stay on the device and come to the host once per epoch and
+once per validation pass. Checkpoints, resume, preemption, summaries and the
+data-parallel mesh are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from graphecho_torch.config import ExperimentConfig
+from graphecho_torch.device import resolve_device
+from graphecho_torch.train.metrics import overlap_metrics_from_counts
+from graphecho_torch.train.state import TrainState, create_train_state
+from graphecho_torch.train.steps import build_models, make_eval_step, make_train_step
+
+
+def _logger(name: str, log_path: Optional[str]) -> logging.Logger:
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    if not logger.handlers:
+        if log_path:
+            fh = logging.FileHandler(log_path)
+            fh.setLevel(logging.INFO)
+            fh.setFormatter(logging.Formatter(
+                "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+            logger.addHandler(fh)
+        logger.addHandler(logging.StreamHandler())
+    return logger
+
+
+def _not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to graphecho_torch yet; it comes "
+                               f"with {where} (ROADMAP.md, Queue 1)")
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int = 1,
+                 device=None, mesh=None, use_mesh: bool = False,
+                 log_path: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 summary_dir: Optional[str] = None,
+                 drop_bg_channel_in_eval: Optional[bool] = None):
+        if use_mesh or mesh is not None:
+            raise _not_ported("use_mesh / mesh", "the data-parallel slice")
+        if checkpoint_dir is not None:
+            raise _not_ported("checkpoint_dir (checkpoints, resume, preemption)",
+                              "the trainer-checkpoint slice")
+        if summary_dir is not None:
+            raise _not_ported("summary_dir", "the tooling slice")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.steps_per_epoch = steps_per_epoch
+        self.logger = _logger("graphecho_torch", log_path)
+        if cfg.train.debug_nans:
+            # the reference leaves detect_anomaly on (`train_camus_echo.py:39`)
+            torch.autograd.set_detect_anomaly(True)
+        self.models = build_models(cfg)
+        if drop_bg_channel_in_eval is None:
+            # the cardiac variant drops the BG channel (`train_cardiac_uda.py:399-400`)
+            drop_bg_channel_in_eval = cfg.model.backbone == "VGG16"
+        self._train_step = make_train_step(cfg)
+        self._eval_step = make_eval_step(cfg, drop_bg_channel_in_eval)
+        self.state: Optional[TrainState] = None
+        self.last_epoch_metrics: Dict[str, float] = {}
+        self.last_dices: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------ setup
+    def init_state(self, sample_batch: Optional[Dict[str, Any]] = None,
+                   seed: Optional[int] = None,
+                   torch_init: Optional[str] = None) -> TrainState:
+        """Weights from the generator seeded with `cfg.train.seed` (or `seed`).
+        `sample_batch` is accepted for the JAX package's signature; the torch
+        modules know their shapes without one."""
+        if torch_init:
+            raise _not_ported("torch_init", "the tooling slice")
+        self.state = create_train_state(self.cfg, self.models, self.device,
+                                        self.steps_per_epoch, seed)
+        return self.state
+
+    # ------------------------------------------------------------------ train
+    def train_epoch(self, batches: Iterable[Dict[str, Any]], epoch: int) -> Dict[str, float]:
+        assert self.state is not None, "call init_state first"
+        t0 = time.time()
+        device_agg: Optional[Dict[str, torch.Tensor]] = None
+        n = 0
+        for batch in batches:
+            metrics = self._train_step(self.state, batch)
+            device_agg = metrics if device_agg is None else {
+                k: device_agg[k] + v for k, v in metrics.items()}
+            n += 1
+        means: Dict[str, float] = {}
+        if device_agg is not None:
+            keys = list(device_agg)
+            # one device -> host transfer for the whole epoch
+            values = torch.stack([device_agg[k] for k in keys]).tolist()
+            means = {k: v / n for k, v in zip(keys, values)}
+        self.state.epoch = epoch + 1
+        means["steps"] = n
+        means["epoch_seconds"] = time.time() - t0
+        means["step_seconds"] = means["epoch_seconds"] / max(n, 1)
+        self.logger.info("epoch %d | %d steps | loss %.4f | seg %.4f | %.1fs", epoch, n,
+                         means.get("total_loss", float("nan")),
+                         means.get("seg_loss", float("nan")), means["epoch_seconds"])
+        self.last_epoch_metrics = means
+        return means
+
+    def train(self, batch_iter_fn: Callable[[], Iterable[Dict[str, Any]]],
+              num_epochs: Optional[int] = None,
+              eval_fns: Optional[Dict[str, Any]] = None,
+              on_epoch_end: Optional[Callable[[int, Dict[str, float],
+                                               Dict[str, float]], None]] = None
+              ) -> TrainState:
+        """batch_iter_fn: a fresh finite batch iterator per epoch. eval_fns:
+        name -> fn returning (imgs, masks) eval batches, or (fn, is_video)."""
+        num_epochs = num_epochs or self.cfg.train.num_epochs
+        for epoch in range(num_epochs):
+            means = self.train_epoch(batch_iter_fn(), epoch)
+            dices: Dict[str, float] = {}
+            for name, fn in (eval_fns or {}).items():
+                fn, is_video = fn if isinstance(fn, tuple) else (fn, False)
+                dices[name] = self.validation(fn(), name, is_video=is_video)
+            self.last_dices = dices
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, means, dices)
+        return self.state
+
+    # ------------------------------------------------------------- validation
+    def validation(self, batches: Iterable[Tuple[Any, Any]], name: str,
+                   is_video: bool = False) -> float:
+        """Returns dice (the reference selects models by it). Video batches
+        (B,T,H,W,C) are flattened into the batch axis (`:384-387`)."""
+        assert self.state is not None
+        totals: Dict[str, torch.Tensor] = {}
+        part_totals: Dict[str, Dict[str, torch.Tensor]] = {}
+        loss_sum, n_batches = None, 0
+        for imgs, masks in batches:
+            imgs, masks = torch.as_tensor(imgs), torch.as_tensor(masks)
+            if is_video:
+                imgs = imgs.reshape(-1, *imgs.shape[-3:])
+                masks = masks.reshape(-1, *masks.shape[-3:])
+            counts, per_part, loss = self._eval_step(self.state, imgs, masks)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            n_batches += 1
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0.0) + v
+            for p, c in per_part.items():
+                d = part_totals.setdefault(p, {})
+                for k, v in c.items():
+                    d[k] = d.get(k, 0.0) + v
+        if not totals:
+            self.logger.warning("validation [%s]: no batches, dice=0", name)
+            return 0.0
+        # one device -> host transfer for the pass
+        keys = list(totals)
+        parts = [(p, k) for p, c in part_totals.items() for k in c]
+        host = torch.stack([loss_sum] + [totals[k] for k in keys]
+                           + [part_totals[p][k] for p, k in parts]).tolist()
+        loss_mean = host[0] / n_batches
+        totals_h = dict(zip(keys, host[1:1 + len(keys)]))
+        part_h: Dict[str, Dict[str, float]] = {}
+        for (p, k), v in zip(parts, host[1 + len(keys):]):
+            part_h.setdefault(p, {})[k] = v
+        m = overlap_metrics_from_counts(totals_h)
+        self.logger.info(
+            "validation [%s] | loss %.4f | pixel_acc %.4f | dice %.4f | precision %.4f"
+            " | specificity %.4f | recall %.4f", name, loss_mean, m.pixel_acc, m.dice,
+            m.precision, m.specificity, m.recall)
+        if self.cfg.train.seg_parts:
+            for p, c in part_h.items():
+                self.logger.info("  part %s dice %.4f", p, overlap_metrics_from_counts(c).dice)
+        return float(m.dice)
