@@ -319,8 +319,8 @@ def test_gmodule_losses_and_seed_banks_match_jax(case):
                                 generator=torch.Generator().manual_seed(0))
     assert set(tl) == set(jlosses_)
     for k, v in tl.items():
-        report_parity(f"GModule {case} {k}", float(v), float(jlosses_[k]))
-        np.testing.assert_allclose(float(v), float(jlosses_[k]), rtol=1e-3, atol=1e-5,
+        report_parity(f"GModule {case} {k}", v.item(), float(jlosses_[k]))
+        np.testing.assert_allclose(v.item(), float(jlosses_[k]), rtol=1e-3, atol=1e-5,
                                    err_msg=k)
     for got, want in zip(tseeds, jseeds):
         report_parity(f"GModule {case} seed bank", got.numpy(), want)
