@@ -1,6 +1,6 @@
 """Smoke run of graphecho_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, and drives the CAMUS->EchoNet
-and CardiacUDA train steps at full width.
+holds each against its plain PyTorch version, drives the CAMUS->EchoNet and
+CardiacUDA train steps at full width, and runs the pvig_s ViG classifier.
 
     python3 chip_smoke.py
 
@@ -13,6 +13,13 @@ Phases, each printing one JSON line:
      atol 1e-4, gradients rtol/atol 1e-3 (the JAX package's own bounds), two
      backward runs bit-identical; CUDA-event times (median of 20 after warm-up)
      beside the least time the card could take;
+  3b. knn: the kNN-graph kernel against its plain version at each pvig_s
+     Grapher shape (batch 32, with the Grapher's relative-position bias), a
+     ragged self graph without bias and a normalize=False case with k=45 and
+     a per-image bias. Neighbours must equal the plain version's in order; a
+     position where they differ passes only as a near tie, the two picks'
+     distances recomputed in float64 within 1e-5. Two runs bit-identical;
+     times and bound as above;
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
   5. camus: `train_camus_echo` with the paper's `camus_echo_config()`
@@ -20,7 +27,15 @@ Phases, each printing one JSON line:
      for 3 steps and validation, launch counters zeroed just before and read
      just after; then steady-state step time and peak memory;
   6. cardiac: one step of `train_cardiac_uda` at full width (VGG16, 256²,
-     five classes -> a 560x560 affinity), counted the same way.
+     five classes -> a 560x560 affinity), counted the same way;
+  7. vig reference: a small DeepGCN on the card (kNN kernel) and on the CPU
+     (plain kNN) from the same weights and images, logits within rtol 1e-3 /
+     atol 1e-4;
+  8. vig: `pvig_s(n_classes=1000)` at 224², eval forwards at batch 4 (the
+     reference's smoke) and 32, then one train-mode forward with a backward of
+     a cross-entropy at batch 32; the kNN launch counter zeroed before each
+     forward and read after it (12 Graphers, 12 launches); steady eval
+     images/s and peak memory.
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
@@ -48,6 +63,15 @@ LOSS_KEYS = ("seg_loss", "dis_loss", "node_loss", "mat_loss_aff", "mat_loss_qu",
              "loss_adv_p2", "loss_adv_p3", "loss_adv_p4", "loss_adv_p5", "total_loss")
 KERNEL_SHAPES = ((112, 112, 512), (560, 560, 512), (70, 50, 40))
 MAIN_SHAPE = (112, 112, 512)  # what the camus main path gives the kernels
+# what pvig_s's Graphers give the kNN kernel at batch 32: (Graphers, N queries,
+# M keys or None for a self graph, C, k * dilation)
+KNN_BATCH = 32
+KNN_SHAPES = (("0-1", 3136, 196, 80, 9), ("2-3", 784, 196, 160, 9),
+              ("4-7", 196, None, 400, 18), ("8-9", 196, None, 400, 27),
+              ("10-11", 49, None, 640, 27))
+KNN_MAIN = "0-1"
+KNN_TIE_TOL = 1e-5
+PVIG_S_PARAMS = 27_251_912
 
 
 def check(ok: bool, what: str) -> None:
@@ -172,6 +196,103 @@ def phase_kernels():
     return rows
 
 
+def knn_tie_gap(x, y, rel, normalize, got, want):
+    """(rows where the kernel's neighbours differ from the plain version's,
+    the largest gap between the float64 distances of the two picks at a
+    position where they differ)."""
+    from graphecho_torch.ops.knn import l2_normalize
+
+    diff = got != want
+    rows = int(diff.any(-1).sum())
+    if rows == 0:
+        return 0, 0.0
+    bi, ni, _ = diff.nonzero(as_tuple=True)
+    xs = x.double()
+    ys = xs if y is None else y.double()
+    if normalize:
+        xs, ys = l2_normalize(xs), l2_normalize(ys)
+
+    def dist(cols):
+        cols = cols.long()
+        d = ((xs[bi, ni] - ys[bi, cols]) ** 2).sum(-1)
+        if rel is not None:
+            d = d + rel.double()[bi if rel.shape[0] > 1 else 0, ni, cols]
+        return d
+
+    return rows, (dist(got[diff]) - dist(want[diff])).abs().max().item()
+
+
+def knn_work(b, n, m, c, k, self_graph, rel_numel):
+    """(operations, bytes) the kNN graph needs at least: 2 per multiply-add
+    of the distance products; per (query, key) the subtraction, the addition,
+    the bias and one comparison against the k-th best; 5 per input element to
+    normalize it and sum its square; each input read once (x alone for a self
+    graph) and the indices written once."""
+    pair = 4 if rel_numel else 3
+    rows = b * n if self_graph else b * (n + m)
+    ops = 2 * b * n * m * c + pair * b * n * m + 5 * rows * c
+    return ops, 4 * (rows * c + rel_numel + b * n * k)
+
+
+def phase_knn():
+    """The kNN kernel against its plain version on the card; returns its row
+    of the `kernels` line at the Grapher 0-1 shape."""
+    from graphecho_torch.models.vig import relative_pos_buffer
+    from graphecho_torch.ops import knn
+
+    cases = [(f"graphers {g}", KNN_BATCH, n, m, c, k, True, "grapher")
+             for g, n, m, c, k in KNN_SHAPES]
+    cases += [("ragged self", 2, 1000, None, 37, 16, True, None),
+              ("normalize=False", 4, 500, 300, 64, 45, False, "per-image")]
+    row = None
+    for i, (name, b, n, m, c, k, normalize, rel_kind) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        scale = 1.0 if normalize else 0.1  # unnormalized rows: distances O(1)
+        x = torch.randn(b, n, c, device="cuda", generator=gen) * scale
+        y = None if m is None else torch.randn(b, m, c, device="cuda", generator=gen) * scale
+        mm = n if m is None else m
+        rel = None
+        if rel_kind == "grapher":
+            rel = relative_pos_buffer(c, n, mm, x.device)
+        elif rel_kind == "per-image":
+            rel = torch.randn(b, n, mm, device="cuda", generator=gen) * 0.1
+
+        got = knn.launch_knn(x, y, k, normalize, rel)
+        want = knn.knn_reference(x, y, k, normalize, rel)
+        deterministic = torch.equal(got, knn.launch_knn(x, y, k, normalize, rel))
+        check(deterministic, f"knn {name}: two runs differ in their bits")
+        check(bool(((got >= 0) & (got < mm)).all()), f"knn {name}: index out of range")
+        check(bool((torch.sort(got, dim=-1).values.diff(dim=-1) != 0).all()),
+              f"knn {name}: a neighbour repeats in a row")
+        rows_differ, gap = knn_tie_gap(x, y, rel, normalize, got, want)
+        check(gap <= KNN_TIE_TOL, f"knn {name}: {rows_differ} rows differ from the plain "
+                                  f"version, float64 distance gap {gap} > {KNN_TIE_TOL}")
+
+        def kernel():
+            return knn.launch_knn(x, y, k, normalize, rel)
+
+        def plain():
+            return knn.knn_reference(x, y, k, normalize, rel)
+
+        plain_ms = cuda_ms(plain)
+        ms = cuda_ms(kernel)
+        ms = min(ms, cuda_ms(kernel))
+        plain_ms = min(plain_ms, cuda_ms(plain))
+        ops, nbytes = knn_work(b, n, mm, c, k, m is None, 0 if rel is None else rel.numel())
+        bound_ms, bound_by = bound(ops, nbytes)
+        emit("knn", case=name, b=b, n=n, m=mm, c=c, k=k, normalize=normalize,
+             relative_pos=None if rel is None else list(rel.shape), rows=b * n,
+             rows_differ=rows_differ, max_tie_gap=gap, deterministic=deterministic, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if name == f"graphers {KNN_MAIN}":
+            row = {"name": "knn", "route": "cuda", "source": "graphecho_torch/csrc/knn.cu",
+                   "replaces": "graphecho_tpu/ops/pallas/knn_kernel.py:30", "launches": 0,
+                   "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    torch.cuda.synchronize()
+    return row
+
+
 def _tiny_cfg():
     from graphecho_torch import config as C
 
@@ -291,6 +412,99 @@ def phase_main(card: str):
     return camus_launches
 
 
+def phase_vig_reference():
+    """A small DeepGCN on the card (kNN kernel) against the same model on the
+    CPU (plain kNN): logits within rtol 1e-3 / atol 1e-4."""
+    from graphecho_torch.models.initializers import initialize
+    from graphecho_torch.models.vig import DeepGCN
+    from graphecho_torch.ops import knn
+
+    # 128² keeps k * dilation = 6 below the 16 nodes of the last stage
+    kw = dict(blocks=(1, 1, 2, 1), channels=(16, 32, 48, 64), k=3, n_classes=10, img_size=128)
+    cpu = initialize(DeepGCN(**kw), torch.Generator().manual_seed(5)).eval()
+    card = DeepGCN(**kw)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(6))
+    knn.reset_launch_counts()
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    check(knn.LAUNCHES["knn"] == 5, f"vig reference: {knn.LAUNCHES} kNN launches for 5 Graphers")
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()) and bool((diff <= 1e-4 + 1e-3 * want.abs()).all()),
+          f"vig reference: card vs CPU logits differ by {diff.max().item()}")
+    emit("vig_reference", config=kw, batch=2, max_abs_diff=diff.max().item(),
+         knn_launches=knn.LAUNCHES["knn"])
+
+
+def phase_vig(card: str) -> int:
+    """pvig_s at full width: eval at batch 4 and 32, one train step's forward
+    and backward at batch 32; returns the kNN launches of the batch-32 eval
+    forward."""
+    import torch.nn.functional as F
+
+    from graphecho_torch.models.vig import pvig_s
+    from graphecho_torch.ops import knn
+
+    model = pvig_s(n_classes=1000).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == PVIG_S_PARAMS, f"pvig_s has {n_params} parameters")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    evals = {}
+    for batch in (4, 32):
+        x = torch.randn(batch, 3, 224, 224, device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        knn.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = knn.LAUNCHES["knn"]
+        check(launches == 12, f"pvig_s eval batch {batch}: {launches} kNN launches, not 12")
+        check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()),
+              f"pvig_s eval batch {batch}: logits {tuple(logits.shape)} not finite")
+        evals[batch] = {"knn_launches": launches, "first_forward_s": seconds,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "logits_std": logits.std().item()}
+    times = []
+    with torch.no_grad():
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            if i >= 2:  # after two warm-up batches
+                times.append(time.perf_counter() - t0)
+    eval_ms = statistics.median(times) * 1e3
+
+    model.train()
+    labels = torch.randint(0, 1000, (32,), device="cuda", generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    knn.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = model(x, generator=gen)
+    launches = knn.LAUNCHES["knn"]
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(launches == 12, f"pvig_s train forward: {launches} kNN launches, not 12")
+    check(bool(torch.isfinite(logits).all()) and math.isfinite(loss.item()),
+          f"pvig_s train: loss {loss.item()}")
+    grads = [p.grad for p in model.parameters()]
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+          "pvig_s train: a gradient is missing or not finite")
+    emit("vig", cfg="pvig_s(n_classes=1000)", img=224, parameters=n_params, eval=evals,
+         eval_batch=32, eval_ms=eval_ms, eval_images_per_s=32 / (eval_ms / 1e3),
+         train_batch=32, train_loss=loss.item(), train_knn_launches=launches,
+         train_fwd_bwd_s=train_s, train_peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         grad_norm=torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item(), card=card)
+    return evals[32]["knn_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available; this script runs only on a GPU",
@@ -312,10 +526,14 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels()
+    knn_row = phase_knn()
     phase_reference()
     launches = phase_main(card)
     for name, row in rows.items():
         row["launches"] = launches[name]
+    phase_vig_reference()
+    knn_row["launches"] = phase_vig(card)
+    rows["knn"] = knn_row
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@
 arrays (no JAX import is needed to call it) and returns what the port's
 modules load with `load_state_dict`:
 
-  * conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
+  * conv kernels HWIO -> OIHW, 1-D conv kernels (W, I, O) -> (O, I, W) (the
+    ViG's grouped 1x1 convs: (1, Cin/groups, Cout) -> what `nn.Conv1d`
+    loads), Dense kernels (in, out) -> (out, in);
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
   * GroupNorm and LayerNorm scale/bias -> weight/bias;
   * the Affinity's split `fc1_wx`/`fc1_wy`/`fc1_b`/`fc2_w`/`fc2_b` are kept
@@ -13,7 +15,7 @@ modules load with `load_state_dict`:
 The FPN's torch names are the reference's (`back_bone.layer1.0.conv1`,
 `back_bone.block_1.0`, torchvision's `downsample.0/1`), so a state dict that
 went through `graphecho_tpu/utils/torch_import.py` comes back unchanged. The
-graph head and the discriminators keep the flax module names.
+graph head, the discriminators and the ViG/DeepGCN keep the flax module names.
 """
 
 from __future__ import annotations
@@ -39,7 +41,11 @@ def _leaf(name: str, value) -> tuple:
     if name == "kernel":
         if value.ndim == 4:
             return "weight", _t(value.transpose(3, 2, 0, 1))  # HWIO -> OIHW
-        return "weight", _t(value.T)  # Dense (in, out) -> (out, in)
+        if value.ndim == 3:
+            return "weight", _t(value.transpose(2, 1, 0))  # 1-D conv WIO -> OIW
+        if value.ndim == 2:
+            return "weight", _t(value.T)  # Dense (in, out) -> (out, in)
+        raise ValueError(f"kernel of rank {value.ndim}: shape {value.shape}")
     if name == "scale":
         return "weight", _t(value)
     return name, _t(value)
@@ -55,10 +61,18 @@ def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
             out[f"{prefix}{leaf}"] = tensor
 
 
+def _walk_stats(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """Flax `batch_stats` subtree -> running_mean/running_var by '.'-joined name."""
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk_stats(value, f"{prefix}{key}.", out)
+        else:
+            out[prefix + _BN_STATS[key]] = _t(value)
+
+
 def _bn(out, prefix: str, params: Mapping, stats: Mapping) -> None:
     _walk(params, prefix, out)
-    for key, value in stats.items():
-        out[prefix + _BN_STATS[key]] = _t(value)
+    _walk_stats(stats, prefix, out)
 
 
 def _backbone(params: Mapping, stats: Mapping, out: Dict[str, torch.Tensor]) -> None:
@@ -105,14 +119,27 @@ def module_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def vig_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's `models/vig.py::DeepGCN` from the flax
+    DeepGCN's `params`/`batch_stats`: the names are the flax names, the
+    `pos_embed` (1, H, W, C) becomes (1, C, H, W), GIN's `eps` passes as it is."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, "", out)
+    _walk_stats(batch_stats, "", out)
+    if "pos_embed" in out:
+        out["pos_embed"] = out["pos_embed"].permute(0, 3, 1, 2).contiguous()
+    return out
+
+
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, Any]:
     """Convert a JAX train state to the port's state dicts.
 
     `variables` holds any of the JAX `TrainState` fields as nested dicts of
     numpy arrays: `net_params` with `net_batch_stats`, `gmn_params`,
-    `dis_params` (level -> params) and the seed banks `sr_seed`/`tg_seed`.
-    Returns {"fpn": ..., "gmodule": ..., "dis": {level: ...}, "sr_seed": ...,
-    "tg_seed": ...} for the fields present."""
+    `dis_params` (level -> params), the seed banks `sr_seed`/`tg_seed`, and a
+    DeepGCN's `vig_params` with `vig_batch_stats`. Returns {"fpn": ...,
+    "gmodule": ..., "dis": {level: ...}, "sr_seed": ..., "tg_seed": ...,
+    "vig": ...} for the fields present."""
     out: Dict[str, Any] = {}
     if "net_params" in variables:
         out["fpn"] = fpn_state_dict(variables["net_params"],
@@ -122,6 +149,9 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, Any]:
     if variables.get("dis_params") is not None:
         out["dis"] = {lvl: module_state_dict(p)
                       for lvl, p in variables["dis_params"].items()}
+    if variables.get("vig_params") is not None:
+        out["vig"] = vig_state_dict(variables["vig_params"],
+                                    variables.get("vig_batch_stats", {}))
     for seed in ("sr_seed", "tg_seed"):
         if variables.get(seed) is not None:
             out[seed] = _t(variables[seed])

@@ -1,12 +1,13 @@
-"""Where a train step's time goes on the card.
+"""Where a step's time goes on the card.
 
     python -m graphecho_torch.profile_step --recipe camus --steps 5
 
-Builds the recipe's trainer at full width (`camus_echo_config()` or
-`cardiac_uda_config()`), runs warm-up steps, then times `--steps` steps with
-the host clock (synchronized) and traces the same steps with
-`torch.profiler`. Prints one JSON object: the steady step time, the device's
-busy time per step (the union of its kernel intervals) and idle share, the
+A step is one train step of a recipe's trainer at full width
+(`camus_echo_config()` or `cardiac_uda_config()`), or, for `--recipe pvig_s`,
+one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
+warm-up steps, then times `--steps` steps with the host clock (synchronized)
+and traces the same steps with `torch.profiler`. Prints one JSON object: the
+steady step time, the device's busy time per step (the union of its kernel intervals) and idle share, the
 number of kernel launches per step, the host time in each phase of the step
 and the device time by kernel name. It needs a CUDA device and fails without
 one.
@@ -18,15 +19,17 @@ import argparse
 import json
 import statistics
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from graphecho_torch.config import camus_echo_config, cardiac_uda_config
 from graphecho_torch.data.synthetic import SyntheticEchoData
+from graphecho_torch.models.vig import pvig_s
 from graphecho_torch.train.trainer import Trainer
 
 RECIPES = {"camus": camus_echo_config, "cardiac": cardiac_uda_config}
+PVIG_BATCH = 32
 
 
 def _busy_us(intervals: List[Tuple[float, float]]) -> float:
@@ -40,24 +43,39 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
+def _step_fn(recipe: str, n: int) -> Callable[[int], None]:
+    """Step i (< n) of the recipe, its inputs made beforehand."""
+    if recipe == "pvig_s":
+        model = pvig_s(n_classes=1000).eval()
+        x = torch.randn(PVIG_BATCH, 3, 224, 224, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+        def forward(i: int) -> None:
+            with torch.no_grad():
+                model(x)
+        return forward
+    cfg = RECIPES[recipe]()
+    trainer = Trainer(cfg)
+    trainer.init_state()
+    data = SyntheticEchoData(cfg, seed=0)
+    batches = [data.train_batch() for _ in range(n)]
+    return lambda i: trainer._train_step(trainer.state, batches[i])
+
+
 def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = RECIPES[recipe]()
-    trainer = Trainer(cfg)
-    trainer.init_state()
-    data = SyntheticEchoData(cfg, seed=0)
-    batches = [data.train_batch() for _ in range(warmup + steps)]
-    for batch in batches[:warmup]:
-        trainer._train_step(trainer.state, batch)
+    step = _step_fn(recipe, warmup + steps)
+    for i in range(warmup):
+        step(i)
 
     host_ms = []
-    for batch in batches[warmup:]:
+    for i in range(warmup, warmup + steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer._train_step(trainer.state, batch)
+        step(i)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -65,8 +83,8 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for batch in batches[warmup:]:
-            trainer._train_step(trainer.state, batch)
+        for i in range(warmup, warmup + steps):
+            step(i)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
 
@@ -101,7 +119,7 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--recipe", choices=sorted(RECIPES), default="camus")
+    parser.add_argument("--recipe", choices=sorted(RECIPES) + ["pvig_s"], default="camus")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--warmup", type=int, default=2)
     args = parser.parse_args()
