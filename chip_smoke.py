@@ -20,6 +20,11 @@ Phases, each printing one JSON line:
      position where they differ passes only as a near tie, the two picks'
      distances recomputed in float64 within 1e-5. Two runs bit-identical;
      times and bound as above;
+  3c. knn ties: the kNN kernel on inputs whose distances are exact (one-hot
+     and integer rows, all-zero rows with and without the Grapher's bias), key
+     rows 3, 7 and 9 one row three times: neighbours equal to the plain
+     version's in order with no near-tie allowance, the copies of key 3 in
+     column order;
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
   5. camus: `train_camus_echo` with the paper's `camus_echo_config()`
@@ -196,32 +201,6 @@ def phase_kernels():
     return rows
 
 
-def knn_tie_gap(x, y, rel, normalize, got, want):
-    """(rows where the kernel's neighbours differ from the plain version's,
-    the largest gap between the float64 distances of the two picks at a
-    position where they differ)."""
-    from graphecho_torch.ops.knn import l2_normalize
-
-    diff = got != want
-    rows = int(diff.any(-1).sum())
-    if rows == 0:
-        return 0, 0.0
-    bi, ni, _ = diff.nonzero(as_tuple=True)
-    xs = x.double()
-    ys = xs if y is None else y.double()
-    if normalize:
-        xs, ys = l2_normalize(xs), l2_normalize(ys)
-
-    def dist(cols):
-        cols = cols.long()
-        d = ((xs[bi, ni] - ys[bi, cols]) ** 2).sum(-1)
-        if rel is not None:
-            d = d + rel.double()[bi if rel.shape[0] > 1 else 0, ni, cols]
-        return d
-
-    return rows, (dist(got[diff]) - dist(want[diff])).abs().max().item()
-
-
 def knn_work(b, n, m, c, k, self_graph, rel_numel):
     """(operations, bytes) the kNN graph needs at least: 2 per multiply-add
     of the distance products; per (query, key) the subtraction, the addition,
@@ -264,7 +243,7 @@ def phase_knn():
         check(bool(((got >= 0) & (got < mm)).all()), f"knn {name}: index out of range")
         check(bool((torch.sort(got, dim=-1).values.diff(dim=-1) != 0).all()),
               f"knn {name}: a neighbour repeats in a row")
-        rows_differ, gap = knn_tie_gap(x, y, rel, normalize, got, want)
+        rows_differ, gap = knn.knn_tie_gap(x, y, rel, normalize, got, want)
         check(gap <= KNN_TIE_TOL, f"knn {name}: {rows_differ} rows differ from the plain "
                                   f"version, float64 distance gap {gap} > {KNN_TIE_TOL}")
 
@@ -291,6 +270,97 @@ def phase_knn():
                    "bound_by": bound_by, "library_ms": None}
     torch.cuda.synchronize()
     return row
+
+
+def knn_tie_inputs(kind: str, b: int, n: int, m, c: int, gen: torch.Generator):
+    """(x, y, relative_pos) on the card whose distances every version computes
+    exactly, so that equal distances are equal in their bits and the order is
+    set by the tie rule alone. Key rows 3, 7 and 9 are one row three times.
+    The bias, where these inputs make one, repeats column 3 in columns 7
+    and 9, so the three keys tie for every query.
+      one-hot: each row a power of two times a unit vector of one of the first
+        8 channels, so it normalizes exactly, and distances are 0 or 2, plus a
+        shared bias in steps of 0.5;
+      integer: rows of integers in [-2, 2] (not normalized), plus a per-image
+        bias in steps of 0.25;
+      zero: all rows 0, so every distance is 0;
+      zero-grapher: all rows 0 and the Grapher's bias, so every distance is
+        the bias.
+    """
+    from graphecho_torch.models.vig import relative_pos_buffer
+
+    mm = n if m is None else m
+
+    def rows(count):
+        if kind == "one-hot":
+            ch = torch.randint(0, 8, (b, count), device="cuda", generator=gen)
+            scale = 2.0 ** torch.randint(-2, 4, (b, count), device="cuda", generator=gen)
+            return torch.nn.functional.one_hot(ch, c).float() * scale[..., None]
+        if kind == "integer":
+            return torch.randint(-2, 3, (b, count, c), device="cuda", generator=gen).float()
+        return torch.zeros(b, count, c, device="cuda")
+
+    x = rows(n)
+    y = None if m is None else rows(m)
+    keys = x if y is None else y
+    keys[:, 7] = keys[:, 3]
+    keys[:, 9] = keys[:, 3]
+    rel = None
+    if kind == "one-hot":
+        rel = torch.randint(0, 4, (1, n, mm), device="cuda", generator=gen) * 0.5
+    elif kind == "integer":
+        rel = torch.randint(0, 5, (b, n, mm), device="cuda", generator=gen) * 0.25
+    if rel is not None:
+        rel[..., 7] = rel[..., 3]
+        rel[..., 9] = rel[..., 3]
+    if kind == "zero-grapher":
+        rel = relative_pos_buffer(c, n, mm, x.device)
+    return x, y, rel
+
+
+def copies_in_column_order(idx: torch.Tensor) -> bool:
+    """Whether keys 3, 7 and 9 come in column order in every row that holds
+    all three, with nothing between them but keys tied with them (columns
+    4-8, ascending), and at least one row holds all three."""
+    seen = 0
+    for row in idx.reshape(-1, idx.shape[-1]).tolist():
+        if {3, 7, 9} <= set(row):
+            run = row[row.index(3):row.index(9) + 1]
+            if 7 not in run or run != sorted(run):
+                return False
+            seen += 1
+    return seen > 0
+
+
+def phase_knn_ties():
+    """The kNN kernel on exactly tied distances: its neighbours must equal the
+    plain version's in order, with no near-tie allowance, and repeat in their
+    bits."""
+    from graphecho_torch.ops import knn
+
+    # (kind, b, n, m or None for a self graph, c, k, normalize)
+    cases = (("one-hot", 2, 300, 200, 37, 45, True), ("integer", 2, 500, None, 24, 16, False),
+             ("zero", 2, 196, None, 400, 18, True), ("zero-grapher", 2, 196, None, 400, 18, True))
+    for i, (kind, b, n, m, c, k, normalize) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        x, y, rel = knn_tie_inputs(kind, b, n, m, c, gen)
+        got = knn.launch_knn(x, y, k, normalize, rel)
+        want = knn.knn_reference(x, y, k, normalize, rel)
+        check(torch.equal(got, knn.launch_knn(x, y, k, normalize, rel)),
+              f"knn ties {kind}: two runs differ in their bits")
+        rows_differ = int((got != want).any(-1).sum())
+        check(rows_differ == 0, f"knn ties {kind}: {rows_differ} rows differ from the plain "
+                                f"version on exact ties")
+        if kind == "zero":  # no bias: every distance 0, so the first k columns
+            check(bool((got == torch.arange(k, device="cuda", dtype=torch.int32)).all()),
+                  "knn ties zero: not the first k columns in order")
+        if kind != "zero-grapher":  # the Grapher's bias unties the copies
+            check(copies_in_column_order(got),
+                  f"knn ties {kind}: keys 3, 7, 9 are not neighbours in column order")
+        emit("knn_ties", case=kind, b=b, n=n, m=n if m is None else m, c=c, k=k,
+             normalize=normalize, relative_pos=None if rel is None else list(rel.shape),
+             rows=b * n, rows_differ=rows_differ)
+    torch.cuda.synchronize()
 
 
 def _tiny_cfg():
@@ -527,6 +597,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     knn_row = phase_knn()
+    phase_knn_ties()
     phase_reference()
     launches = phase_main(card)
     for name, row in rows.items():

@@ -224,16 +224,15 @@ class GraphConv(nn.Module):
 
 class DyGraphConv(nn.Module):
     """Dynamic graph conv over a kNN graph built on the fly, the keys
-    avg-pooled r x r when r > 1 (`vig.py:184-206`). NCHW in and out.
-    `epsilon` is kept for the signature; the JAX package ignores it too."""
+    avg-pooled r x r when r > 1 (`vig.py:184-206`). NCHW in and out."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
                  dilation: int = 1, conv: str = "edge", act: str = "relu",
                  norm: Optional[str] = None, bias: bool = True, stochastic: bool = False,
-                 epsilon: float = 0.0, r: int = 1):
+                 r: int = 1):
         super().__init__()
         self.kernel_size, self.dilation = kernel_size, dilation
-        self.stochastic, self.epsilon, self.r = stochastic, epsilon, r
+        self.stochastic, self.r = stochastic, r
         self.gc = GraphConv(in_channels, out_channels, conv, act, norm, bias)
 
     def forward(self, x: torch.Tensor, relative_pos: Optional[torch.Tensor] = None,
@@ -256,16 +255,15 @@ class Grapher(nn.Module):
 
     def __init__(self, in_channels: int, kernel_size: int = 9, dilation: int = 1,
                  conv: str = "edge", act: str = "relu", norm: Optional[str] = None,
-                 bias: bool = True, stochastic: bool = False, epsilon: float = 0.0,
-                 r: int = 1, n: int = 196, drop_path_rate: float = 0.0,
-                 relative_pos: bool = False):
+                 bias: bool = True, stochastic: bool = False, r: int = 1,
+                 drop_path_rate: float = 0.0, relative_pos: bool = False):
         super().__init__()
         self.in_channels, self.r = in_channels, r  # the bias follows the input's n
         self.drop_path_rate, self.relative_pos = drop_path_rate, relative_pos
         self.fc1 = conv2d(in_channels, in_channels, 1)
         self.bn1 = BatchNorm2d(in_channels)
         self.graph_conv = DyGraphConv(in_channels, in_channels * 2, kernel_size, dilation,
-                                      conv, act, norm, bias, stochastic, epsilon, r)
+                                      conv, act, norm, bias, stochastic, r)
         self.fc2 = conv2d(in_channels * 2, in_channels, 1)
         self.bn2 = BatchNorm2d(in_channels)
 
@@ -341,7 +339,7 @@ class DeepGCN(nn.Module):
     def __init__(self, blocks: Sequence[int] = (2, 2, 6, 2),
                  channels: Sequence[int] = (48, 96, 240, 384), k: int = 9,
                  conv: str = "mr", act: str = "gelu", norm: str = "batch", bias: bool = True,
-                 epsilon: float = 0.2, stochastic: bool = False, drop_path_rate: float = 0.0,
+                 stochastic: bool = False, drop_path_rate: float = 0.0,
                  dropout: float = 0.0, n_classes: int = 1000, img_size: int = 224,
                  in_channels: int = 3):
         super().__init__()
@@ -354,17 +352,15 @@ class DeepGCN(nn.Module):
         self.stem = Stem(in_channels, channels[0], act)
         hw = img_size // 4
         self.pos_embed = nn.Parameter(torch.zeros(1, channels[0], hw, hw))
-        n = hw * hw
         idx = 0
         for i, (n_blk, ch) in enumerate(zip(blocks, channels)):
             if i > 0:
                 setattr(self, f"down_{i}", Downsample(channels[i - 1], ch))
-                n = n // 4
             for _ in range(n_blk):
                 setattr(self, f"grapher_{idx}", Grapher(
                     ch, k, min(idx // 4 + 1, max_dilation), conv, act, norm, bias,
-                    stochastic, epsilon, reduce_ratios[i], n=n,
-                    drop_path_rate=float(dpr[idx]), relative_pos=True))
+                    stochastic, reduce_ratios[i], drop_path_rate=float(dpr[idx]),
+                    relative_pos=True))
                 setattr(self, f"ffn_{idx}", FFN(ch, ch * 4, ch, act, float(dpr[idx])))
                 idx += 1
         self.pred_conv1 = conv2d(channels[-1], 1024, 1)
@@ -389,9 +385,10 @@ class DeepGCN(nn.Module):
 
 
 def _build(blocks, channels, device, seed: int, **kw) -> DeepGCN:
+    device = resolve_device(device)  # without a card, raise before building
     model = DeepGCN(blocks=blocks, channels=channels, **kw)
     initialize(model, torch.Generator().manual_seed(seed))
-    return model.to(resolve_device(device))
+    return model.to(device)
 
 
 def pvig_ti(device=None, seed: int = 0, **kw) -> DeepGCN:

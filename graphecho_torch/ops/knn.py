@@ -30,9 +30,6 @@ from graphecho_torch.ops import cuda_build
 
 # launches of the kernel entry point since the last `reset_launch_counts()`
 LAUNCHES: Dict[str, int] = {"knn": 0}
-# the largest k (= k * dilation) the kernel's shared k-best lists take; pvig's
-# largest is 9 * 5 = 45
-KNN_MAX_K = 64
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +101,32 @@ def knn_reference(x: torch.Tensor, y: Optional[torch.Tensor] = None, k: int = 9,
     return dense_knn(x, y, k, relative_pos)
 
 
+def knn_tie_gap(x: torch.Tensor, y: Optional[torch.Tensor],
+                relative_pos: Optional[torch.Tensor], normalize: bool, got: torch.Tensor,
+                want: torch.Tensor) -> Tuple[int, float]:
+    """(rows where the neighbours `got` differ from `want`, the largest gap
+    between the float64 distances of the two picks at a position where they
+    differ). A gap near 0 means the two orders differ only at a near tie."""
+    diff = got != want
+    rows = int(diff.any(-1).sum())
+    if rows == 0:
+        return 0, 0.0
+    bi, ni, _ = diff.nonzero(as_tuple=True)
+    xs = x.double()
+    ys = xs if y is None else y.double()
+    if normalize:
+        xs, ys = l2_normalize(xs), l2_normalize(ys)
+
+    def dist(cols):
+        cols = cols.long()
+        d = ((xs[bi, ni] - ys[bi, cols]) ** 2).sum(-1)
+        if relative_pos is not None:
+            d = d + relative_pos.double()[bi if relative_pos.shape[0] > 1 else 0, ni, cols]
+        return d
+
+    return rows, (dist(got[diff]) - dist(want[diff])).abs().max().item()
+
+
 # -------------------------------------------------------------------- the kernel
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -113,9 +136,6 @@ def _lib() -> ctypes.CDLL:
     lib.knn.restype = ctypes.c_int
     lib.knn_max_k.argtypes = []
     lib.knn_max_k.restype = ctypes.c_int
-    if lib.knn_max_k() != KNN_MAX_K:
-        raise RuntimeError(f"csrc/knn.cu takes k <= {lib.knn_max_k()}, the wrapper "
-                           f"expects {KNN_MAX_K}")
     return lib
 
 
@@ -134,8 +154,9 @@ def _check_inputs(x: torch.Tensor, y: torch.Tensor, k: int,
     m = y.shape[1]
     if min(b, n, m, c) < 1:
         raise ValueError(f"empty input: x {tuple(x.shape)}, y {tuple(y.shape)}")
-    if not 1 <= k <= min(m, KNN_MAX_K):
-        raise ValueError(f"the knn kernel takes 1 <= k <= min(M={m}, {KNN_MAX_K}), got k={k}")
+    max_k = _lib().knn_max_k()  # the kernel's k-best lists hold up to 64; pvig needs 45
+    if not 1 <= k <= min(m, max_k):
+        raise ValueError(f"the knn kernel takes 1 <= k <= min(M={m}, {max_k}), got k={k}")
     rel_batch = 0
     if relative_pos is not None:
         if relative_pos.dim() != 3 or relative_pos.shape[1:] != (n, m) \

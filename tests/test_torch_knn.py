@@ -6,8 +6,9 @@ inputs as the JAX XLA path (`graphecho_tpu.ops.knn`) and the Pallas kernel
 order, ties included (lowest column first), because the dilated graph picks
 candidates by rank. Distances agree within atol 1e-5 (f32 sums of 16-32
 products). The CUDA kernel (`csrc/knn.cu`) runs only on a GPU:
-`test_kernel_matches_plain_on_card` holds it to the plain version there and
-skips elsewhere; `chip_smoke.py` does the same at the pvig_s shapes.
+`tests/test_torch_knn_card.py` holds it to the plain version there and skips
+elsewhere; `chip_smoke.py` does the same at the pvig_s shapes. The exact-tie
+inputs of that file go through the JAX package here.
 """
 
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ import torch
 from graphecho_tpu.ops import knn as jknn
 from graphecho_tpu.ops.pallas.knn_kernel import pallas_knn
 
-from chip_smoke import knn_tie_gap
+from test_torch_knn_card import check_copies_of_key_3, tie_inputs
 from test_torch_pairwise_mlp import report_parity
 
 from graphecho_torch.ops import knn as tknn
@@ -157,21 +158,22 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tknn.launch_knn(x, k=3)
 
 
-@pytest.mark.parametrize("b,n,m,c,k,normalize,rel_batch", [
-    (2, 300, None, 37, 16, True, 0),       # ragged self graph, no bias
-    (2, 300, 70, 80, 9, True, 1),          # pooled keys, shared bias
-    (3, 49, None, 640, 27, False, 3),      # last pvig stage, per-image bias
-])
-def test_kernel_matches_plain_on_card(b, n, m, c, k, normalize, rel_batch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    x = (torch.from_numpy(_nodes(b, n, c, 15)) * 0.1).cuda()
-    y = None if m is None else (torch.from_numpy(_nodes(b, m, c, 16)) * 0.1).cuda()
-    rel = None if rel_batch == 0 else _t(_rel(n, m or n, 17, rel_batch)).cuda()
-    got = tknn.launch_knn(x, y, k, normalize, rel)
-    want = tknn.knn_reference(x, y, k, normalize, rel)
-    assert torch.equal(got, tknn.launch_knn(x, y, k, normalize, rel))
-    # positions that differ must be near ties in float64
-    _, gap = knn_tie_gap(x, y, rel, normalize, got, want)
-    assert gap <= 1e-5
+@pytest.mark.parametrize("kind", ["one-hot", "integer", "zero"])
+def test_exact_tie_inputs_match_jax_and_pallas_interpret(kind):
+    k = 12
+    x, y, rel, normalize = tie_inputs(kind, 2, 24, None if kind == "integer" else 20, 11, 40)
+    jy = None if y is None else jnp.asarray(y)
+    jrel = None if rel is None else jnp.asarray(rel)
+    got = tknn.knn_reference(_t(x), None if y is None else _t(y), k, normalize,
+                             None if rel is None else _t(rel))
+    pallas = pallas_knn(jnp.asarray(x), jy, k=k, normalize=normalize, relative_pos=jrel,
+                        block_q=8, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    if normalize:
+        want = jknn.dilated_knn_graph(jnp.asarray(x), jy, k, 1, jrel)
+    else:
+        want = jknn.dense_knn(jnp.asarray(x), jy, k, jrel)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    check_copies_of_key_3(got)
+    if kind == "zero":
+        np.testing.assert_array_equal(got.numpy(), np.broadcast_to(np.arange(k), got.shape))

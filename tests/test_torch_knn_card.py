@@ -1,0 +1,124 @@
+"""The CUDA kNN-graph kernel (`csrc/knn.cu`) against its plain version on a
+GPU; every test skips without one. This file imports no JAX, so it runs on a
+card where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_knn_card.py
+
+Random inputs: the kernel's neighbours equal the plain version's in order,
+and a position where they differ passes only as a near tie (float64 distance
+gap <= 1e-5). Exact ties: inputs whose distances both compute exactly, where
+the order must equal the plain version's with no allowance. Two runs are
+bit-identical. `tests/test_torch_knn.py` holds the same tie inputs to the JAX
+package on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from graphecho_torch.models.vig import relative_pos_buffer
+from graphecho_torch.ops import knn as tknn
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _nodes(b, n, c, seed):
+    return np.random.RandomState(seed).randn(b, n, c).astype(np.float32)
+
+
+def _rel(n, m, seed, batch=1):
+    return (np.random.RandomState(seed).randn(batch, n, m) * 0.1).astype(np.float32)
+
+
+def tie_inputs(kind, b, n, m, c, seed):
+    """Inputs whose distances every version computes exactly (see
+    `chip_smoke.knn_tie_inputs`): one-hot rows scaled by powers of two
+    (normalized), integer rows (not normalized) or zeros (with no bias, or
+    the Grapher's for "zero-grapher"), with key rows 3, 7 and 9 one row three
+    times and the made-up biases tied across those columns too."""
+    rng = np.random.RandomState(seed)
+    mm = n if m is None else m
+
+    def rows(count):
+        if kind == "one-hot":
+            out = np.zeros((b, count, c), np.float32)
+            ch = rng.randint(0, min(c, 8), (b, count))
+            scale = 2.0 ** rng.randint(-2, 4, (b, count))
+            out[np.arange(b)[:, None], np.arange(count)[None], ch] = scale
+            return out
+        if kind == "integer":
+            return rng.randint(-2, 3, (b, count, c)).astype(np.float32)
+        return np.zeros((b, count, c), np.float32)
+
+    x = rows(n)
+    y = None if m is None else rows(m)
+    keys = x if y is None else y
+    keys[:, 7] = keys[:, 9] = keys[:, 3]
+    rel = None
+    if kind == "one-hot":
+        rel = (rng.randint(0, 4, (1, n, mm)) * 0.5).astype(np.float32)
+    elif kind == "integer":
+        rel = (rng.randint(0, 5, (b, n, mm)) * 0.25).astype(np.float32)
+    if rel is not None:
+        rel[..., 7] = rel[..., 9] = rel[..., 3]
+    if kind == "zero-grapher":
+        rel = relative_pos_buffer(c, n, mm, torch.device("cpu")).numpy()
+    return x, y, rel, kind != "integer"
+
+
+def check_copies_of_key_3(idx):
+    """Wherever keys 3, 7 and 9 are all neighbours, they come in column order,
+    with nothing between them but keys tied with them: columns 4-8, ascending."""
+    seen = 0
+    for row in np.asarray(idx).reshape(-1, idx.shape[-1]).tolist():
+        if {3, 7, 9} <= set(row):
+            run = row[row.index(3):row.index(9) + 1]
+            assert 7 in run and run == sorted(run), row
+            seen += 1
+    assert seen > 0
+
+
+@pytest.mark.parametrize("kind,b,n,m,c,k", [
+    ("one-hot", 2, 300, 200, 37, 45),
+    ("integer", 2, 500, None, 24, 16),
+    ("zero", 2, 196, None, 400, 18),
+    ("zero-grapher", 2, 196, None, 400, 18),
+])
+def test_kernel_keeps_exact_ties_on_card(kind, b, n, m, c, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y, rel, normalize = tie_inputs(kind, b, n, m, c, 41)
+    x = _t(x).cuda()
+    y = None if y is None else _t(y).cuda()
+    rel = None if rel is None else _t(rel).cuda()
+    got = tknn.launch_knn(x, y, k, normalize, rel)
+    # exact ties: the same order as the plain version, with no near-tie allowance
+    assert torch.equal(got, tknn.knn_reference(x, y, k, normalize, rel))
+    assert torch.equal(got, tknn.launch_knn(x, y, k, normalize, rel))
+    if kind == "zero":
+        assert bool((got == torch.arange(k, device=got.device, dtype=torch.int32)).all())
+    if kind != "zero-grapher":  # the Grapher's bias unties the copies
+        check_copies_of_key_3(got.cpu().numpy())
+
+
+@pytest.mark.parametrize("b,n,m,c,k,normalize,rel_batch", [
+    (2, 300, None, 37, 16, True, 0),       # ragged self graph, no bias
+    (2, 300, 70, 80, 9, True, 1),          # pooled keys, shared bias
+    (3, 49, None, 640, 27, False, 3),      # last pvig stage, per-image bias
+])
+def test_kernel_matches_plain_on_card(b, n, m, c, k, normalize, rel_batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = (torch.from_numpy(_nodes(b, n, c, 15)) * 0.1).cuda()
+    y = None if m is None else (torch.from_numpy(_nodes(b, m, c, 16)) * 0.1).cuda()
+    rel = None if rel_batch == 0 else _t(_rel(n, m or n, 17, rel_batch)).cuda()
+    got = tknn.launch_knn(x, y, k, normalize, rel)
+    want = tknn.knn_reference(x, y, k, normalize, rel)
+    assert torch.equal(got, tknn.launch_knn(x, y, k, normalize, rel))
+    # positions that differ must be near ties in float64
+    _, gap = tknn.knn_tie_gap(x, y, rel, normalize, got, want)
+    assert gap <= 1e-5
