@@ -222,7 +222,11 @@ def phase_knn():
     cases = [(f"graphers {g}", KNN_BATCH, n, m, c, k, True, "grapher")
              for g, n, m, c, k in KNN_SHAPES]
     cases += [("ragged self", 2, 1000, None, 37, 16, True, None),
-              ("normalize=False", 4, 500, 300, 64, 45, False, "per-image")]
+              ("normalize=False", 4, 500, 300, 64, 45, False, "per-image"),
+              ("k=1", 4, 300, 196, 80, 1, True, "per-image"),
+              ("k=64", 4, 300, 196, 80, 64, True, "per-image"),
+              ("M=k", 4, 200, 27, 64, 27, True, None),
+              ("N=1, B=1", 1, 1, 196, 400, 18, True, "per-image")]
     row = None
     for i, (name, b, n, m, c, k, normalize, rel_kind) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -272,12 +276,14 @@ def phase_knn():
     return row
 
 
-def knn_tie_inputs(kind: str, b: int, n: int, m, c: int, gen: torch.Generator):
+def knn_tie_inputs(kind: str, b: int, n: int, m, c: int, gen: torch.Generator,
+                   copies=(3, 7, 9)):
     """(x, y, relative_pos) on the card whose distances every version computes
     exactly, so that equal distances are equal in their bits and the order is
-    set by the tie rule alone. Key rows 3, 7 and 9 are one row three times.
-    The bias, where these inputs make one, repeats column 3 in columns 7
-    and 9, so the three keys tie for every query.
+    set by the tie rule alone. The key rows `copies` (3, 7 and 9 unless
+    given) are one row three times. The bias, where these inputs make one,
+    repeats the first copy's column in the other two, so the three keys tie
+    for every query.
       one-hot: each row a power of two times a unit vector of one of the first
         8 channels, so it normalizes exactly, and distances are 0 or 2, plus a
         shared bias in steps of 0.5;
@@ -303,30 +309,32 @@ def knn_tie_inputs(kind: str, b: int, n: int, m, c: int, gen: torch.Generator):
     x = rows(n)
     y = None if m is None else rows(m)
     keys = x if y is None else y
-    keys[:, 7] = keys[:, 3]
-    keys[:, 9] = keys[:, 3]
+    first, *others = copies
+    for col in others:
+        keys[:, col] = keys[:, first]
     rel = None
     if kind == "one-hot":
         rel = torch.randint(0, 4, (1, n, mm), device="cuda", generator=gen) * 0.5
     elif kind == "integer":
         rel = torch.randint(0, 5, (b, n, mm), device="cuda", generator=gen) * 0.25
     if rel is not None:
-        rel[..., 7] = rel[..., 3]
-        rel[..., 9] = rel[..., 3]
+        for col in others:
+            rel[..., col] = rel[..., first]
     if kind == "zero-grapher":
         rel = relative_pos_buffer(c, n, mm, x.device)
     return x, y, rel
 
 
-def copies_in_column_order(idx: torch.Tensor) -> bool:
-    """Whether keys 3, 7 and 9 come in column order in every row that holds
-    all three, with nothing between them but keys tied with them (columns
-    4-8, ascending), and at least one row holds all three."""
+def copies_in_column_order(idx: torch.Tensor, copies=(3, 7, 9)) -> bool:
+    """Whether the copies of one key row come in column order in every row
+    that holds all three, with nothing between them but keys tied with them
+    (in ascending columns), and at least one row holds all three."""
     seen = 0
+    first, middle, last = copies
     for row in idx.reshape(-1, idx.shape[-1]).tolist():
-        if {3, 7, 9} <= set(row):
-            run = row[row.index(3):row.index(9) + 1]
-            if 7 not in run or run != sorted(run):
+        if set(copies) <= set(row):
+            run = row[row.index(first):row.index(last) + 1]
+            if middle not in run or run != sorted(run):
                 return False
             seen += 1
     return seen > 0
@@ -338,12 +346,16 @@ def phase_knn_ties():
     bits."""
     from graphecho_torch.ops import knn
 
-    # (kind, b, n, m or None for a self graph, c, k, normalize)
-    cases = (("one-hot", 2, 300, 200, 37, 45, True), ("integer", 2, 500, None, 24, 16, False),
-             ("zero", 2, 196, None, 400, 18, True), ("zero-grapher", 2, 196, None, 400, 18, True))
-    for i, (kind, b, n, m, c, k, normalize) in enumerate(cases):
+    # (kind, b, n, m or None for a self graph, c, k, normalize, key columns of the
+    # copies); "integer" over 1000 keys puts its copies in different key tiles
+    cases = (("one-hot", 2, 300, 200, 37, 45, True, (3, 7, 9)),
+             ("integer", 2, 500, None, 24, 16, False, (3, 7, 9)),
+             ("zero", 2, 196, None, 400, 18, True, (3, 7, 9)),
+             ("zero-grapher", 2, 196, None, 400, 18, True, (3, 7, 9)),
+             ("integer", 2, 300, 1000, 24, 64, False, (3, 500, 999)))
+    for i, (kind, b, n, m, c, k, normalize, copies) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
-        x, y, rel = knn_tie_inputs(kind, b, n, m, c, gen)
+        x, y, rel = knn_tie_inputs(kind, b, n, m, c, gen, copies)
         got = knn.launch_knn(x, y, k, normalize, rel)
         want = knn.knn_reference(x, y, k, normalize, rel)
         check(torch.equal(got, knn.launch_knn(x, y, k, normalize, rel)),
@@ -355,9 +367,10 @@ def phase_knn_ties():
             check(bool((got == torch.arange(k, device="cuda", dtype=torch.int32)).all()),
                   "knn ties zero: not the first k columns in order")
         if kind != "zero-grapher":  # the Grapher's bias unties the copies
-            check(copies_in_column_order(got),
-                  f"knn ties {kind}: keys 3, 7, 9 are not neighbours in column order")
-        emit("knn_ties", case=kind, b=b, n=n, m=n if m is None else m, c=c, k=k,
+            check(copies_in_column_order(got, copies),
+                  f"knn ties {kind}: keys {copies} are not neighbours in column order")
+        emit("knn_ties", case=kind, copies=list(copies), b=b, n=n, m=n if m is None else m,
+             c=c, k=k,
              normalize=normalize, relative_pos=None if rel is None else list(rel.shape),
              rows=b * n, rows_differ=rows_differ)
     torch.cuda.synchronize()

@@ -1,275 +1,521 @@
 // Fused kNN graph for Hopper (sm_90a): for every query row q of x and every
 // key row k of y (y = x for a self graph),
 //
-//   q, k   <- q / max(|q|, 1e-12), k / max(|k|, 1e-12)     (if normalize)
-//   d[q,k]  = |q|^2 - 2 q.k + |k|^2  (+ relative_pos[q,k])
-//   out[q]  = the k_sel columns of smallest d, ascending, ties to the lowest column
+//   s_q, s_k = 1 / max(|q|, 1e-12), 1 / max(|k|, 1e-12)   (1 without normalize)
+//   d[q,k]   = s_q^2 |q|^2 - 2 (q.k) s_q s_k + s_k^2 |k|^2  (+ relative_pos[q,k])
+//   out[q]   = the k_sel columns of smallest d, ascending, ties to the lowest column
 //
 // Replaces the Pallas TPU kernel graphecho_tpu/ops/pallas/knn_kernel.py
-// (`_knn_kernel`, launched by `pallas_knn`). Pallas normalizes by
-// x * rsqrt(max(sum x^2, 1e-24)); here a row is multiplied by
-// 1 / max(sqrt(sum x^2), 1e-12), computed once per row. Both are the plain
-// version's `F.normalize` up to rounding.
+// (`_knn_kernel`, launched by `pallas_knn`). Pallas normalizes the rows first,
+// x * rsqrt(max(sum x^2, 1e-24)); here the dot product of the raw rows is
+// scaled by s_q s_k, which is the plain version's `F.normalize` followed by
+// the product, up to rounding. NaN inputs are outside the contract.
 //
 // What bounds it on an H100: operations. The distance products are 2*N*M*C
 // per batch item against (N + M)*C inputs; at the ViG widths (C = 80..640,
-// M = 196) that is far above the card's ridge point, so the FP32 CUDA-core
-// rate (67 TFLOP/s) sets the floor. Only at the last pvig stage (N = M = 49,
-// C = 640) do the bytes come close to it. The products may not go to the
-// tensor cores: TF32 rounds the distances far enough to reorder near-tied
-// neighbours.
+// M = 196) that is far above the card's ridge point. Here the products run on
+// the tensor cores as 3xTF32 `mma.sync` (each FP32 operand split into a TF32
+// high part and a TF32 remainder, hi*hi + hi*lo + lo*hi): FP32-level error,
+// so near ties keep the plain version's order within 1e-5, and values with
+// zero remainders (integers, powers of two) multiply exactly.
 //
 // What the design does about it:
-//  * The (N, M) distance matrix never reaches device memory; the plain
-//    version writes it and sorts every row of it. One block owns BQ queries
-//    of one batch item and walks over the keys in tiles of BK, staging
-//    BQ x CC and BK x CC slices of the normalized rows in shared memory for
-//    each CC-wide chunk of C, so C is not limited. The next chunk's loads are
-//    in flight while the current one is multiplied. Each thread keeps a 4 x 4
-//    block of dot products in registers and reads 4 queries and 4 keys as one
-//    16-byte load each: 16 FMAs per 2 shared loads.
-//  * The distance is formed as (q_sq - 2*dot) + k_sq, then + relative_pos,
-//    the plain version's order of operations.
-//  * Selection keeps a sorted k-best list per query. After each key tile a
-//    warp takes one query at a time, holds its list across the lanes, and
-//    merges the tile's keys with ballots and shuffles: the keys below the
-//    current k-th distance enter in increasing column order, each after every
-//    entry that is not greater. Ties thus keep the lowest column, the order
-//    of `jax.lax.top_k` on -d and of a stable sort.
-//  * Ragged N, M and C are masked (zeros in the products, +inf distances for
-//    missing keys), never padded. No atomics: repeated runs are bit-identical.
+//  * One launch per call, no scratch. A block owns BQ = 16 * MTQ queries of one
+//    batch item and walks the keys in tiles of MT = 256 (one tile for every
+//    pvig shape, M <= 196), so the (N, M) distance matrix never reaches device
+//    memory. The C entry point picks 64, 32 or 16 queries a block.
+//  * Staging: each 16-channel chunk of the block's queries and of the tile's
+//    keys is copied into a shared-memory ring, as deep as shared memory allows, with `cp.async`
+//    (16 bytes a copy where rows allow it, zero-filled past C), the next
+//    chunk in flight while the current one is multiplied. The same shared
+//    rows give each row's sum of squares, so the norms cost no second pass
+//    and no other kernel. Only the valid rows of a ragged tile are copied,
+//    and warps skip 32-key groups past M: M = 196 computes 224 columns.
+//  * Products: m16n8k8 TF32 `mma.sync` tiles, warp w taking the 8-key column
+//    tiles w + 8j and all 16-query row tiles of the block; the dot products
+//    go to shared memory, and the selection warps form the distances.
+//  * Selection orders by the pair (distance, column) everywhere, packed into
+//    one 64-bit key: the distance's bits mapped to an unsigned order (-0.0
+//    first made +0.0, which the stable sort treats as equal) above the
+//    column. Keys are unique, so the k smallest are exactly the first k of
+//    the plain version's stable sort, whatever order the merges run in. Per
+//    query one warp holds the tile's row, 8 keys a lane, drops those not
+//    below the current k-th key (the whole tile when none is), sorts each
+//    lane's survivors in registers, and merges them with the running list
+//    (entry p in lane p % 32) by k - s rounds of a warp minimum, where the
+//    first s list entries are below every survivor and stay in place.
+//  * No atomics: repeated runs are bit-identical.
 //
-// Plain C interface, loaded with ctypes. The entry point launches on the
-// given stream, allocates nothing, and returns a CUDA error code.
+// Plain C interface, loaded with ctypes. The entry point launches one kernel
+// on the given stream, allocates nothing, and returns a CUDA error code.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // queries per block
-constexpr int BK = 64;          // keys per tile
-constexpr int CC = 32;          // channels per staged chunk
-constexpr int TX = 16;          // threads along the keys of a tile, 4 keys each
-constexpr int TY = 16;          // threads along the queries of a tile, 4 queries each
-constexpr int THREADS = TX * TY;
+typedef unsigned long long u64;
+
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int QP = BQ + 4;      // padded rows of the staged tiles (16-byte aligned)
-constexpr int KP = BK + 4;
-constexpr int LOADS = BQ * CC / THREADS;  // staged values per thread and chunk (= BK * CC / THREADS)
-constexpr int MAX_K = 64;       // largest k the k-best lists take (two entries per lane)
-// q_s[CC][QP] and k_s[CC][KP] while the products run, then dist_s[BQ][KP]
-constexpr int TILE_FLOATS = (CC * QP + CC * KP) > (BQ * KP) ? (CC * QP + CC * KP) : (BQ * KP);
-constexpr int STATS_THREADS = 256;
+constexpr int MT = 256;          // keys per tile, one per thread for the row sums
+constexpr int NTW = MT / 8 / 8;  // 8-key column tiles per warp: 8 warps cover MT keys
+constexpr int KPL = MT / 32;     // keys of a tile row per lane in the selection
+constexpr int CC = 16;           // channels per staged chunk
+constexpr int CCP = CC + 4;      // padded row of a staged chunk (16-byte aligned)
+constexpr int MAX_STAGES = 8;    // chunks in the shared-memory ring, at most
+constexpr int MAX_K = 64;        // largest k: two list entries per lane
 constexpr unsigned FULL = 0xffffffffu;
+constexpr u64 NONE = ~0ull;      // above every (distance, column) key
 
-static_assert(BQ * CC == BK * CC && BQ * CC % THREADS == 0, "tile loads split evenly");
+static_assert(NTW * 8 * WARPS == MT && MT == THREADS, "tile layout");
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>  // until at most N groups of copies are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// until chunk ch of a ring of `nstage` stages has landed (nstage - 2 groups
+// may stay in flight); 0 waits for all
+__device__ __forceinline__ void cp_async_wait_ring(int nstage) {
+  switch (nstage) {
+    case 8: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>();
+  }
+}
+
+// Channels [c0, c0 + CC) of `rows` rows starting at `src` (row length c) into
+// dst[row * CCP + ch], zeros past c. Rows past `rows` are left as they are.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, int c, int c0,
+                                           bool vec16, int tid) {
+  if (vec16) {  // c % 4 == 0 and 16-byte aligned rows
+    for (int e = tid; e < rows * (CC / 4); e += THREADS) {
+      const int r = e / (CC / 4), ch = c0 + 4 * (e % (CC / 4));
+      const int bytes = ch < c ? 16 : 0;
+      const float* s = src + (size_t)r * c + (bytes ? ch : 0);
+      cp_async16(dst + r * CCP + (ch - c0), s, bytes);
+    }
+  } else {
+    for (int e = tid; e < rows * CC; e += THREADS) {
+      const int r = e / CC, ch = c0 + e % CC;
+      const int bytes = ch < c ? 4 : 0;
+      const float* s = src + (size_t)r * c + (bytes ? ch : 0);
+      cp_async4(dst + r * CCP + (ch - c0), s, bytes);
+    }
+  }
+}
+
+__device__ __forceinline__ float sum_sq_chunk(const float* row, float s) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  for (int c4 = 0; c4 < CC / 4; ++c4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * c4);
+    s = fmaf(v.x, v.x, s);
+    s = fmaf(v.y, v.y, s);
+    s = fmaf(v.z, v.z, s);
+    s = fmaf(v.w, v.w, s);
+  }
+  return s;
+}
+
+// the distance's bits in an unsigned order; -0.0 ties with +0.0, as in the stable sort
+__device__ __forceinline__ unsigned ordered(float d) {
+  if (d == 0.f) d = 0.f;
+  const unsigned u = __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// (distance, column) as one key whose unsigned order is the pair's order
+__device__ __forceinline__ u64 pack(unsigned ord, int col) {
+  return (static_cast<u64>(ord) << 32) | static_cast<unsigned>(col);
+}
+
+__device__ __forceinline__ u64 warp_min(u64 v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const u64 o = __shfl_xor_sync(FULL, v, off);
+    v = o < v ? o : v;
+  }
   return v;
 }
 
-// One warp per row: the factor that normalizes the row, 1 / max(|row|, 1e-12)
-// (1 without normalization), and the squared norm of the normalized row.
-__global__ void row_stats_kernel(const float* __restrict__ v, float* __restrict__ scale,
-                                 float* __restrict__ sq, int rows, int c, int normalize) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // uniform across the warp
-  const float* r = v + (size_t)row * c;
-  float s = 0.f;
-  for (int i = lane; i < c; i += 32) s = fmaf(r[i], r[i], s);
-  s = warp_sum(s);
-  const float f = normalize ? 1.f / fmaxf(sqrtf(s), 1e-12f) : 1.f;
-  float s2 = 0.f;
-  for (int i = lane; i < c; i += 32) {
-    const float t = r[i] * f;
-    s2 = fmaf(t, t, s2);
-  }
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    scale[row] = f;
-    sq[row] = s2;
-  }
+__device__ __forceinline__ u64 bitonic_step(u64 v, int stride, bool keep_min) {
+  const u64 o = __shfl_xor_sync(FULL, v, stride);
+  return keep_min == (o < v) ? o : v;
 }
 
-// Rows [r0, r0 + BQ) of a (rows, c) matrix, channels [c0, c0 + CC), times the
-// row's scale, into registers: value i of thread t is row (t + i*THREADS) / CC.
-__device__ __forceinline__ void load_chunk(const float* __restrict__ v,
-                                           const float* __restrict__ scale, int rows, int c,
-                                           int r0, int c0, float (&reg)[LOADS]) {
+// 32 keys, one per lane, sorted ascending across the warp
+__device__ __forceinline__ u64 sort_warp32(u64 v, int lane) {
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    const int r = r0 + e / CC, ch = c0 + e % CC;
-    reg[i] = (r < rows && ch < c) ? v[(size_t)r * c + ch] * scale[r] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_chunk(float* __restrict__ tile, int pitch,
-                                            const float (&reg)[LOADS]) {
+  for (int size = 2; size <= 32; size <<= 1)
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    tile[(e % CC) * pitch + e / CC] = reg[i];
-  }
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      v = bitonic_step(v, stride, ((lane & stride) == 0) == ((lane & size) == 0));
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS, 3)  // 3 blocks per SM: 80 registers, no spills
+// 64 keys, entries lane and lane + 32 in each lane, sorted ascending
+__device__ __forceinline__ void sort_warp64(u64& e0, u64& e1, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // size 64: both halves in this lane
+        const u64 lo = e0 < e1 ? e0 : e1, hi = e0 < e1 ? e1 : e0;
+        e0 = lo;
+        e1 = hi;
+      } else {
+        const bool lower = (lane & stride) == 0;
+        e0 = bitonic_step(e0, stride, lower == ((lane & size) == 0));
+        e1 = bitonic_step(e1, stride, lower == (((lane + 32) & size) == 0));
+      }
+    }
+}
+
+__device__ __forceinline__ void sort_lane(u64 (&v)[KPL]) {  // bitonic network, ascending
+#pragma unroll
+  for (int size = 2; size <= KPL; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const bool up = (i & size) == 0;
+          const u64 a = v[i], b = v[j];
+          const bool swap = up ? (b < a) : (a < b);
+          v[i] = swap ? b : a;
+          v[j] = swap ? a : b;
+        }
+      }
+}
+
+// The first k keys of a tile row (d[i] at column lane + 32 i, nk valid,
+// columns counted from j0), when few enough of them lie at or below a threshold that a warp sort
+// of the survivors is cheaper than the merge. The threshold is the k-th
+// smallest of the two smallest keys of each lane (k keys lie at or below it).
+// Returns false, leaving o0/o1 alone, when more than 64 keys survive.
+__device__ __forceinline__ bool select_by_threshold(const float (&d)[KPL], int nk, int j0,
+                                                    int k, u64* scratch, int lane, u64& o0,
+                                                    u64& o1) {
+  unsigned h[KPL];
+  unsigned a = ~0u, a2 = ~0u;  // this lane's two smallest
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int col = lane + 32 * i;
+    h[i] = col < nk ? ordered(d[i]) : ~0u;
+    if (h[i] < a) {
+      a2 = a;
+      a = h[i];
+    } else if (h[i] < a2) {
+      a2 = h[i];
+    }
+  }
+  unsigned t = ~0u;
+  for (int p = 0; p < k; ++p) {
+    t = __reduce_min_sync(FULL, a);
+    if (a == t) {  // lanes that tie all step on: the threshold only grows
+      a = a2;
+      a2 = ~0u;
+    }
+  }
+  int count = 0;
+  __syncwarp();  // the last query's reads of the scratch are done
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int col = lane + 32 * i;
+    const bool keep = col < nk && h[i] <= t;
+    const unsigned ballot = __ballot_sync(FULL, keep);
+    const int pos = count + __popc(ballot & ((1u << lane) - 1u));
+    if (keep && pos < 64) scratch[pos] = pack(h[i], j0 + col);
+    count += __popc(ballot);
+  }
+  if (count > 64) return false;  // uniform
+  __syncwarp();
+  if (count <= 32) {
+    o0 = sort_warp32(lane < count ? scratch[lane] : NONE, lane);
+    o1 = NONE;
+  } else {
+    u64 e0 = scratch[lane], e1 = lane + 32 < count ? scratch[lane + 32] : NONE;
+    sort_warp64(e0, e1, lane);
+    o0 = e0;
+    o1 = e1;
+  }
+  return true;
+}
+
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo with both parts in TF32: hi*hi + hi*lo + lo*hi is the FP32
+// product up to the lo*lo term (3xTF32)
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int MTQ>  // 16-query row tiles per block
+__global__ void __launch_bounds__(THREADS, 2)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
-           const float* __restrict__ rel, const float* __restrict__ x_scale,
-           const float* __restrict__ x_sq, const float* __restrict__ y_scale,
-           const float* __restrict__ y_sq, int* __restrict__ out, int n, int m, int c, int k,
-           int rel_batched) {
+           const float* __restrict__ rel, int* __restrict__ out, int n, int m, int c, int k,
+           int kr, int nstage, int rel_batched, int normalize, int vec16) {
+  constexpr int BQ = 16 * MTQ;
+  const int stage = (BQ + kr) * CCP;
+  const int dp = kr + 8;  // pitch of dist_s: the fragments' 8-byte stores spread over the banks
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem;
-  float* k_s = smem + CC * QP;
-  float* dist_s = smem;  // aliases q_s/k_s once the products of a tile are done
-  float* best_d = smem + TILE_FLOATS;                     // [BQ][k]
-  int* best_i = reinterpret_cast<int*>(best_d + k * BQ);  // [BQ][k]
+  float* dot_s = smem;  // [BQ][dp] dot products, aliases the staging ring once they are done
+  float* s_q = smem + (nstage * stage > BQ * dp ? nstage * stage : BQ * dp);
+  float* sq_q = s_q + BQ;
+  float* s_k = sq_q + BQ;
+  float* sq_k = s_k + MT;
+  u64* scratch = reinterpret_cast<u64*>(sq_k + MT);  // [WARPS][64] survivors
+  u64* list_s = scratch + WARPS * 64;                // [BQ][k], only with more than one tile
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int lane = tid % 32, warp = tid / 32;
-  const float* xb = x + (size_t)b * n * c;
+  const int nq = min(BQ, n - q0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int fr = lane / 4, fc = lane % 4;  // a fragment's row and column
+  const float* xb = x + ((size_t)b * n + q0) * c;
   const float* yb = y + (size_t)b * m * c;
-  const float* xsb = x_scale + (size_t)b * n;
-  const float* ysb = y_scale + (size_t)b * m;
   const float* relb = rel == nullptr ? nullptr : rel + (rel_batched ? (size_t)b * n * m : 0);
-
-  for (int e = tid; e < k * BQ; e += THREADS) {
-    best_d[e] = CUDART_INF_F;
-    best_i[e] = -1;
-  }
-  float qsq[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int qi = q0 + ty * 4 + ii;
-    qsq[ii] = qi < n ? x_sq[(size_t)b * n + qi] : 0.f;
-  }
-
   const int chunks = (c + CC - 1) / CC;
-  const int steps = ((m + BK - 1) / BK) * chunks;
-  float q_reg[LOADS], k_reg[LOADS];
-  load_chunk(xb, xsb, n, c, q0, 0, q_reg);
-  load_chunk(yb, ysb, m, c, 0, 0, k_reg);
-  float acc[4][4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
+  const int tiles = (m + MT - 1) / MT;
 
-  for (int step = 0; step < steps; ++step) {
-    const int j0 = (step / chunks) * BK;
-    __syncthreads();  // the last readers of this region (products or selection) are done
-    store_chunk(q_s, QP, q_reg);
-    store_chunk(k_s, KP, k_reg);
-    __syncthreads();
-    if (step + 1 < steps) {  // the next chunk's loads overlap this chunk's products
-      const int nj0 = ((step + 1) / chunks) * BK, nc0 = ((step + 1) % chunks) * CC;
-      load_chunk(xb, xsb, n, c, q0, nc0, q_reg);
-      load_chunk(yb, ysb, m, c, nj0, nc0, k_reg);
-    }
-#pragma unroll 8
-    for (int cc = 0; cc < CC; ++cc) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + cc * QP + ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(k_s + cc * KP + tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * MT;
+    const int nk = min(MT, m - j0);
+    const float* yt = yb + (size_t)j0 * c;
+    // warp w takes the 8-key column tiles w + 8j
+    float acc[MTQ][NTW][4];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+    for (int i = 0; i < MTQ; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(qa[ii], ka[jj], acc[ii][jj]);
-    }
-    if ((step + 1) % chunks != 0) continue;
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float ssq_k = 0.f, ssq_q = 0.f;
 
-    // the key tile is complete: distances into dist_s, then the k-best lists
-    __syncthreads();  // every thread is done with q_s/k_s: the region becomes dist_s
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = ty * 4 + ii, qi = q0 + r;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = tx * 4 + jj, kj = j0 + col;
-        float d = CUDART_INF_F;
-        if (qi < n && kj < m) {
-          d = (qsq[ii] - 2.f * acc[ii][jj]) + y_sq[(size_t)b * m + kj];
-          if (relb != nullptr) d += relb[(size_t)qi * m + kj];
-        }
-        dist_s[r * KP + col] = d;
-        acc[ii][jj] = 0.f;
+    for (int s = 0; s < nstage - 1; ++s) {
+      if (s < chunks) {
+        stage_rows(smem + s * stage, xb, nq, c, s * CC, vec16, tid);
+        stage_rows(smem + s * stage + BQ * CCP, yt, nk, c, s * CC, vec16, tid);
       }
+      cp_async_commit();
     }
-    __syncthreads();
-    // One warp per query merges the tile into the query's sorted list, held
-    // across the lanes while it is merged: entry p in lane p % 32, register
-    // p / 32. Candidates below the k-th distance are taken in column order;
-    // each goes after every entry that is not greater.
-    for (int q = warp; q < BQ && q0 + q < n; q += WARPS) {
-      float* bd = best_d + q * k;
-      int* bi = best_i + q * k;
-      float l0 = lane < k ? bd[lane] : CUDART_INF_F;
-      int i0 = lane < k ? bi[lane] : -1;
-      float l1 = lane + 32 < k ? bd[lane + 32] : CUDART_INF_F;
-      int i1 = lane + 32 < k ? bi[lane + 32] : -1;
-      float worst = __shfl_sync(FULL, k <= 32 ? l0 : l1, (k - 1) % 32);
-      const float d0 = lane < BK ? dist_s[q * KP + lane] : CUDART_INF_F;
-      const float d1 = lane + 32 < BK ? dist_s[q * KP + lane + 32] : CUDART_INF_F;
+    for (int ch = 0; ch < chunks; ++ch) {
+      cp_async_wait_ring(nstage);
+      __syncthreads();  // chunk ch has landed; nobody still reads chunk ch - 1's stage
+      const int next = ch + nstage - 1;
+      if (next < chunks) {
+        float* st = smem + (next % nstage) * stage;
+        stage_rows(st, xb, nq, c, next * CC, vec16, tid);
+        stage_rows(st + BQ * CCP, yt, nk, c, next * CC, vec16, tid);
+      }
+      cp_async_commit();
+      const float* q_st = smem + (ch % nstage) * stage;
+      const float* k_st = q_st + BQ * CCP;
+      if (tid < nk) ssq_k = sum_sq_chunk(k_st + tid * CCP, ssq_k);
+      if (tid < nq) ssq_q = sum_sq_chunk(q_st + tid * CCP, ssq_q);
+      const int steps = (min(CC, c - ch * CC) + 7) / 8;  // 8-channel mma steps
+      for (int s8 = 0; s8 < steps; ++s8) {
+        const int c8 = 8 * s8 + fc;
+        unsigned bh[NTW][2], bl[NTW][2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float dh = half ? d1 : d0;
-        unsigned pending = __ballot_sync(FULL, dh < worst);
-        while (pending != 0u) {
-          const int src = __ffs(pending) - 1;
-          pending &= pending - 1;
-          const float d = __shfl_sync(FULL, dh, src);
-          if (!(d < worst)) continue;  // uniform: the list moved since the ballot
-          const int col = j0 + half * 32 + src;
-          const int pos = __popc(__ballot_sync(FULL, l0 <= d)) +
-                          __popc(__ballot_sync(FULL, l1 <= d));
-          const float up0 = __shfl_up_sync(FULL, l0, 1);
-          const int up0i = __shfl_up_sync(FULL, i0, 1);
-          const float up1 = __shfl_up_sync(FULL, l1, 1);
-          const int up1i = __shfl_up_sync(FULL, i1, 1);
-          const float carry = __shfl_sync(FULL, l0, 31);
-          const int carryi = __shfl_sync(FULL, i0, 31);
-          if (lane == pos) {
-            l0 = d;
-            i0 = col;
-          } else if (lane > pos) {
-            l0 = up0;
-            i0 = up0i;
+        for (int j = 0; j < NTW; ++j) {
+          const int nt = warp + WARPS * j;
+          if (8 * nt >= nk) continue;  // uniform across the warp
+          const float* kr0 = k_st + (8 * nt + fr) * CCP + c8;
+          split_tf32(kr0[0], bh[j][0], bl[j][0]);
+          split_tf32(kr0[4], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MTQ; ++i) {
+          const float* qr = q_st + (16 * i + fr) * CCP + c8;
+          unsigned ah[4], al[4];
+          split_tf32(qr[0], ah[0], al[0]);
+          split_tf32(qr[8 * CCP], ah[1], al[1]);
+          split_tf32(qr[4], ah[2], al[2]);
+          split_tf32(qr[8 * CCP + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) {
+            if (8 * (warp + WARPS * j) >= nk) continue;
+            mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);  // the small terms first
+            mma_tf32(acc[i][j], ah, bl[j][0], bl[j][1]);
+            mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
           }
-          if (lane + 32 == pos) {
-            l1 = d;
-            i1 = col;
-          } else if (lane + 32 > pos) {
-            l1 = lane == 0 ? carry : up1;
-            i1 = lane == 0 ? carryi : up1i;
-          }
-          worst = __shfl_sync(FULL, k <= 32 ? l0 : l1, (k - 1) % 32);
         }
       }
-      if (lane < k) {
-        bd[lane] = l0;
-        bi[lane] = i0;
+    }
+    cp_async_wait_ring(0);
+
+    // row scales and squared norms of the normalized rows
+    if (tid < nk) {
+      const float f = normalize ? 1.f / fmaxf(sqrtf(ssq_k), 1e-12f) : 1.f;
+      s_k[tid] = f;
+      sq_k[tid] = normalize ? ssq_k * f * f : ssq_k;
+    }
+    if (tid < nq) {
+      const float f = normalize ? 1.f / fmaxf(sqrtf(ssq_q), 1e-12f) : 1.f;
+      s_q[tid] = f;
+      sq_q[tid] = normalize ? ssq_q * f * f : ssq_q;
+    }
+    __syncthreads();  // staging is done: its region becomes dot_s
+
+#pragma unroll
+    for (int i = 0; i < MTQ; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int nt = warp + WARPS * j;
+        if (8 * nt >= nk) continue;
+        float* d = dot_s + (16 * i + fr) * dp + 8 * nt + 2 * fc;
+        *reinterpret_cast<float2*>(d) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(d + 8 * dp) = make_float2(acc[i][j][2], acc[i][j][3]);
       }
-      if (lane + 32 < k) {
-        bd[lane + 32] = l1;
-        bi[lane + 32] = i1;
+    __syncthreads();
+
+    // one warp per query: distances, then the tile's row merged into the query's k-best list
+    for (int ql = warp; ql < nq; ql += WARPS) {
+      const float* row = dot_s + ql * dp;
+      const float* rrow = relb == nullptr ? nullptr : relb + (size_t)(q0 + ql) * m + j0;
+      float d[KPL];
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const int col = lane + 32 * i;
+        d[i] = 0.f;
+        if (col < nk) {  // the plain version's order of operations
+          const float t = (row[col] * s_q[ql]) * s_k[col];
+          d[i] = (sq_q[ql] - 2.f * t) + sq_k[col];
+          if (rrow != nullptr) d[i] += rrow[col];
+        }
+      }
+      u64 o0 = NONE, o1 = NONE;  // the new list, entries lane and lane + 32
+      if (tile > 0 || !select_by_threshold(d, nk, j0, k, scratch + warp * 64, lane, o0, o1)) {
+        u64 v[KPL];
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          const int col = lane + 32 * i;
+          v[i] = col < nk ? pack(ordered(d[i]), j0 + col) : NONE;
+        }
+        u64 l0 = NONE, l1 = NONE;  // the old list
+        bool merge = true;
+        if (tile > 0) {
+          l0 = lane < k ? list_s[ql * k + lane] : NONE;
+          l1 = lane + 32 < k ? list_s[ql * k + lane + 32] : NONE;
+          const u64 worst = __shfl_sync(FULL, k <= 32 ? l0 : l1, (k - 1) % 32);
+          bool any = false;
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) {
+            if (v[i] >= worst) v[i] = NONE;
+            any |= v[i] != NONE;
+          }
+          merge = __any_sync(FULL, any);  // else nothing of this tile enters the list
+        }
+        o0 = l0;  // laid out as the old list
+        o1 = l1;
+        if (merge) {
+          sort_lane(v);
+          // list entries below every survivor keep their places
+          const u64 lowest = warp_min(v[0]);
+          const int keep = __popc(__ballot_sync(FULL, l0 < lowest)) +
+                           __popc(__ballot_sync(FULL, l1 < lowest));
+          u64 a = l0, a2 = l1;  // this lane's list entries not yet placed
+          if (lane + 32 < keep) {
+            a = NONE;
+            a2 = NONE;
+          } else if (lane < keep) {
+            a = l1;
+            a2 = NONE;
+          }
+          for (int p = keep; p < k; ++p) {
+            const u64 head = v[0] < a ? v[0] : a;
+            const u64 mn = warp_min(head);
+            if (v[0] == mn) {
+#pragma unroll
+              for (int i = 0; i + 1 < KPL; ++i) v[i] = v[i + 1];
+              v[KPL - 1] = NONE;
+            } else if (a == mn) {
+              a = a2;
+              a2 = NONE;
+            }
+            if (lane == p % 32) {
+              if (p < 32) o0 = mn;
+              else o1 = mn;
+            }
+          }
+        }
+      }
+      if (tile + 1 < tiles) {
+        if (lane < k) list_s[ql * k + lane] = o0;
+        if (lane + 32 < k) list_s[ql * k + lane + 32] = o1;
+      } else {
+        int* orow = out + ((size_t)b * n + q0 + ql) * k;
+        if (lane < k) orow[lane] = static_cast<int>(o0 & 0xffffffffu);
+        if (lane + 32 < k) orow[lane + 32] = static_cast<int>(o1 & 0xffffffffu);
       }
     }
+    __syncthreads();  // dot_s and the list are read before the next tile is staged
   }
-  __syncthreads();
-  // the block's rows of `out` are contiguous
-  for (int e = tid; e < BQ * k; e += THREADS) {
-    if (q0 + e / k < n) out[((size_t)b * n + q0) * k + e] = best_i[e];
+}
+
+constexpr int MAX_DEVICES = 64;
+constexpr size_t SMEM_PER_BLOCK = 113 * 1024;  // two blocks on an SM's 228 KB
+
+template <int MTQ>
+int launch(const float* x, const float* y, const float* rel, int* out, int b, int n, int m,
+           int c, int k, int rel_batch, int normalize, int vec16, int dev, cudaStream_t s) {
+  constexpr int BQ = 16 * MTQ;
+  const int kr = m < MT ? (m + 31) / 32 * 32 : MT;  // key rows a tile stages
+  const size_t stage = sizeof(float) * (BQ + kr) * CCP;
+  const size_t fixed = sizeof(float) * (2 * BQ + 2 * MT) +
+                       sizeof(u64) * (WARPS * 64 + (m > MT ? (size_t)BQ * k : 0));
+  // as deep a ring as two blocks per SM leave room for, and no deeper than the chunks
+  const int chunks = (c + CC - 1) / CC;
+  int nstage = static_cast<int>((SMEM_PER_BLOCK - fixed) / stage);
+  nstage = max(2, min(min(nstage, MAX_STAGES), chunks + 1));
+  const size_t dots = sizeof(float) * BQ * (kr + 8);
+  const size_t smem = max(nstage * stage, dots) + fixed;
+  static size_t granted[MAX_DEVICES] = {};  // shared memory granted per device, host side
+  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || smem > granted[dev])) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_kernel<MTQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) granted[dev] = smem;
   }
+  const dim3 grid((n + BQ - 1) / BQ, b);
+  knn_kernel<MTQ><<<grid, THREADS, smem, s>>>(x, y, rel, out, n, m, c, k, kr, nstage,
+                                             rel_batch > 1, normalize, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -279,36 +525,32 @@ extern "C" {
 int knn_max_k() { return MAX_K; }
 
 // x (b, n, c), y (b, m, c) and rel (rel_batch, n, m) with rel_batch 0 (no
-// bias), 1 or b; out (b, n, k) int32; scratch holds 2*b*(n + m) floats.
-int knn(const float* x, const float* y, const float* rel, int* out, float* scratch, int b,
-        int n, int m, int c, int k, int rel_batch, int normalize, void* stream) {
-  if (k < 1 || k > MAX_K || k > m || n < 1 || c < 1 || b < 1) {
+// bias), 1 or b; out (b, n, k) int32.
+int knn(const float* x, const float* y, const float* rel, int* out, int b, int n, int m, int c,
+        int k, int rel_batch, int normalize, void* stream) {
+  if (k < 1 || k > MAX_K || k > m || n < 1 || c < 1 || b < 1 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* x_scale = scratch;
-  float* x_sq = x_scale + (size_t)b * n;
-  float* y_scale = x_sq + (size_t)b * n;
-  float* y_sq = y_scale + (size_t)b * m;
-  const int warps_per_block = STATS_THREADS / 32;
-  const int xrows = b * n, yrows = b * m;
-  row_stats_kernel<<<(xrows + warps_per_block - 1) / warps_per_block, STATS_THREADS, 0, s>>>(
-      x, x_scale, x_sq, xrows, c, normalize);
-  row_stats_kernel<<<(yrows + warps_per_block - 1) / warps_per_block, STATS_THREADS, 0, s>>>(
-      y, y_scale, y_sq, yrows, c, normalize);
-  cudaError_t err = cudaGetLastError();
+  const float* r = rel_batch ? rel : nullptr;
+  const int vec16 = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem = sizeof(float) * TILE_FLOATS + (sizeof(float) + sizeof(int)) * (size_t)k * BQ;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+  static int sm_count[MAX_DEVICES] = {};
+  int sms = dev < MAX_DEVICES ? sm_count[dev] : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) sm_count[dev] = sms;
   }
-  const dim3 grid((n + BQ - 1) / BQ, b);
-  knn_kernel<<<grid, THREADS, smem, s>>>(x, y, rel_batch ? rel : nullptr, x_scale, x_sq,
-                                         y_scale, y_sq, out, n, m, c, k, rel_batch > 1);
-  return static_cast<int>(cudaGetLastError());
+  // 64 queries a block where that gives every SM four blocks, else 32 where
+  // it gives two, else 16
+  auto blocks = [&](int bq) { return (long long)b * ((n + bq - 1) / bq); };
+  if (blocks(64) >= 4LL * sms) return launch<4>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
+  if (blocks(32) >= 2LL * sms) return launch<2>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
+  return launch<1>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
 }
 
 }  // extern "C"

@@ -132,18 +132,25 @@ def knn_tie_gap(x: torch.Tensor, y: Optional[torch.Tensor],
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("knn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.knn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.knn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.knn.restype = ctypes.c_int
     lib.knn_max_k.argtypes = []
     lib.knn_max_k.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _max_k() -> int:
+    """The largest k the kernel's k-best lists hold (64; pvig needs 45)."""
+    return _lib().knn_max_k()
+
+
 def _check_inputs(x: torch.Tensor, y: torch.Tensor, k: int,
                   relative_pos: Optional[torch.Tensor]) -> Tuple[int, int, int, int, int]:
     tensors = (x, y) if relative_pos is None else (x, y, relative_pos)
+    dev = x.get_device()  # -1 on the CPU; an int compares faster than a torch.device
     for t in tensors:
-        if (not t.is_cuda or t.device != x.device or t.dtype != torch.float32
+        if (dev < 0 or t.get_device() != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError("the knn kernel takes contiguous float32 tensors on one CUDA "
                              f"device, got {t.dtype} on {t.device} "
@@ -154,7 +161,7 @@ def _check_inputs(x: torch.Tensor, y: torch.Tensor, k: int,
     m = y.shape[1]
     if min(b, n, m, c) < 1:
         raise ValueError(f"empty input: x {tuple(x.shape)}, y {tuple(y.shape)}")
-    max_k = _lib().knn_max_k()  # the kernel's k-best lists hold up to 64; pvig needs 45
+    max_k = _max_k()
     if not 1 <= k <= min(m, max_k):
         raise ValueError(f"the knn kernel takes 1 <= k <= min(M={m}, {max_k}), got k={k}")
     rel_batch = 0
@@ -174,11 +181,12 @@ def launch_knn(x: torch.Tensor, y: Optional[torch.Tensor] = None, k: int = 9,
     y = x if y is None else y
     b, n, m, c, rel_batch = _check_inputs(x, y, k, relative_pos)
     out = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
-    scratch = torch.empty((2 * b * (n + m),), device=x.device, dtype=torch.float32)
     rel_ptr = None if relative_pos is None else relative_pos.data_ptr()
-    err = _lib().knn(x.data_ptr(), y.data_ptr(), rel_ptr, out.data_ptr(), scratch.data_ptr(),
-                     b, n, m, c, k, rel_batch, int(normalize),
-                     torch.cuda.current_stream(x.device).cuda_stream)
+    # the raw handle of the current stream, without building a torch.cuda.Stream
+    # (a sixth of the wrapper's host time at small shapes)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = _lib().knn(x.data_ptr(), y.data_ptr(), rel_ptr, out.data_ptr(),
+                     b, n, m, c, k, rel_batch, int(normalize), stream)
     cuda_build.check(err, "knn")
     LAUNCHES["knn"] += 1
     return out

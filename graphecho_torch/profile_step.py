@@ -8,8 +8,9 @@ one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. Prints one JSON object: the
 steady step time, the device's busy time per step (the union of its kernel intervals) and idle share, the
-number of kernel launches per step, the host time in each phase of the step
-and the device time by kernel name. It needs a CUDA device and fails without
+number of kernel launches per step, the kNN-graph kernel's launches and device
+time per step, the host time in each phase of the step and the device time by
+kernel name. It needs a CUDA device and fails without
 one.
 """
 
@@ -105,12 +106,16 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
         if e.name.startswith("step.") and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    knn = [e for e in kernels if "knn" in e.name]
     return {
         "recipe": recipe, "device": torch.cuda.get_device_name(0), "steps": steps,
         "step_ms": statistics.median(host_ms), "step_ms_all": host_ms,
         "traced_step_ms": traced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
         "kernel_launches_per_step": len(kernels) / steps,
+        # the kNN-graph kernel (`csrc/knn.cu`), every kernel whose name holds "knn"
+        "knn_kernels_per_step": len(knn) / steps,
+        "knn_device_ms": sum(e.time_range.end - e.time_range.start for e in knn) / 1e3 / steps,
         "host_ms_by_phase": {k: us / 1e3 / steps for k, us in sorted(spans.items())},
         "device_ms_by_kernel": [{"name": n[:120], "ms_per_step": us / 1e3 / steps,
                                  "share": us / total_us} for n, us in ranked],

@@ -158,7 +158,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tknn.launch_knn(x, k=3)
 
 
-@pytest.mark.parametrize("kind", ["one-hot", "integer", "zero"])
+@pytest.mark.parametrize("kind", ["one-hot", "integer", "zero", "signed-zero"])
 def test_exact_tie_inputs_match_jax_and_pallas_interpret(kind):
     k = 12
     x, y, rel, normalize = tie_inputs(kind, 2, 24, None if kind == "integer" else 20, 11, 40)

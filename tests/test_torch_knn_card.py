@@ -2,13 +2,16 @@
 GPU; every test skips without one. This file imports no JAX, so it runs on a
 card where only PyTorch is installed:
 
-    python -m pytest --noconftest tests/test_torch_knn_card.py
+    python -m pytest --noconftest -m cuda tests/test_torch_knn_card.py
 
 Random inputs: the kernel's neighbours equal the plain version's in order,
 and a position where they differ passes only as a near tie (float64 distance
-gap <= 1e-5). Exact ties: inputs whose distances both compute exactly, where
-the order must equal the plain version's with no allowance. Two runs are
-bit-identical. `tests/test_torch_knn.py` holds the same tie inputs to the JAX
+gap <= 1e-5). They cover the pvig shapes and the kernel's edges: k = 1 and
+64, M = k, one query of one image, C = 1 and 1024, and M = 1000 over several
+key tiles. Exact ties: inputs whose distances both compute exactly, where
+the order must equal the plain version's with no allowance, copies of one
+key in one tile and in different tiles, and a bias of signed zeros. Two runs
+are bit-identical. `tests/test_torch_knn.py` holds the same tie inputs to the JAX
 package on the CPU.
 """
 
@@ -18,6 +21,8 @@ import torch
 
 from graphecho_torch.models.vig import relative_pos_buffer
 from graphecho_torch.ops import knn as tknn
+
+pytestmark = pytest.mark.cuda
 
 
 def _t(x):
@@ -32,12 +37,13 @@ def _rel(n, m, seed, batch=1):
     return (np.random.RandomState(seed).randn(batch, n, m) * 0.1).astype(np.float32)
 
 
-def tie_inputs(kind, b, n, m, c, seed):
+def tie_inputs(kind, b, n, m, c, seed, copies=(3, 7, 9)):
     """Inputs whose distances every version computes exactly (see
     `chip_smoke.knn_tie_inputs`): one-hot rows scaled by powers of two
-    (normalized), integer rows (not normalized) or zeros (with no bias, or
-    the Grapher's for "zero-grapher"), with key rows 3, 7 and 9 one row three
-    times and the made-up biases tied across those columns too."""
+    (normalized), integer rows (not normalized) or zeros (with no bias, the
+    Grapher's for "zero-grapher", or steps of 0.5 whose zeros carry a random
+    sign for "signed-zero"), with the key rows `copies` one row three times
+    and the made-up biases tied across those columns too."""
     rng = np.random.RandomState(seed)
     mm = n if m is None else m
 
@@ -55,42 +61,50 @@ def tie_inputs(kind, b, n, m, c, seed):
     x = rows(n)
     y = None if m is None else rows(m)
     keys = x if y is None else y
-    keys[:, 7] = keys[:, 9] = keys[:, 3]
+    first, *others = copies
+    keys[:, others] = keys[:, [first]]
     rel = None
     if kind == "one-hot":
         rel = (rng.randint(0, 4, (1, n, mm)) * 0.5).astype(np.float32)
     elif kind == "integer":
         rel = (rng.randint(0, 5, (b, n, mm)) * 0.25).astype(np.float32)
+    elif kind == "signed-zero":
+        rel = (rng.randint(0, 3, (1, n, mm)) * 0.5).astype(np.float32)
+        rel[(rel == 0) & (rng.rand(1, n, mm) < 0.5)] = -0.0
     if rel is not None:
-        rel[..., 7] = rel[..., 9] = rel[..., 3]
+        rel[..., others] = rel[..., [first]]
     if kind == "zero-grapher":
         rel = relative_pos_buffer(c, n, mm, torch.device("cpu")).numpy()
     return x, y, rel, kind != "integer"
 
 
-def check_copies_of_key_3(idx):
-    """Wherever keys 3, 7 and 9 are all neighbours, they come in column order,
-    with nothing between them but keys tied with them: columns 4-8, ascending."""
+def check_copies_of_key_3(idx, copies=(3, 7, 9)):
+    """Wherever the three copies of key 3 are all neighbours, they come in
+    column order, with nothing between them but keys tied with them, in
+    ascending columns."""
     seen = 0
+    first, middle, last = copies
     for row in np.asarray(idx).reshape(-1, idx.shape[-1]).tolist():
-        if {3, 7, 9} <= set(row):
-            run = row[row.index(3):row.index(9) + 1]
-            assert 7 in run and run == sorted(run), row
+        if set(copies) <= set(row):
+            run = row[row.index(first):row.index(last) + 1]
+            assert middle in run and run == sorted(run), row
             seen += 1
     assert seen > 0
 
 
-@pytest.mark.parametrize("kind,b,n,m,c,k", [
-    ("one-hot", 2, 300, 200, 37, 45),
-    ("integer", 2, 500, None, 24, 16),
-    ("zero", 2, 196, None, 400, 18),
-    ("zero-grapher", 2, 196, None, 400, 18),
+@pytest.mark.parametrize("kind,b,n,m,c,k,copies", [
+    ("one-hot", 2, 300, 200, 37, 45, (3, 7, 9)),
+    ("integer", 2, 500, None, 24, 16, (3, 7, 9)),
+    ("zero", 2, 196, None, 400, 18, (3, 7, 9)),
+    ("zero-grapher", 2, 196, None, 400, 18, (3, 7, 9)),
+    ("integer", 2, 300, 1000, 24, 64, (3, 500, 999)),  # copies in three key tiles
+    ("signed-zero", 2, 196, None, 40, 27, (3, 7, 9)),
 ])
-def test_kernel_keeps_exact_ties_on_card(kind, b, n, m, c, k):
+def test_kernel_keeps_exact_ties_on_card(kind, b, n, m, c, k, copies):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, y, rel, normalize = tie_inputs(kind, b, n, m, c, 41)
+    x, y, rel, normalize = tie_inputs(kind, b, n, m, c, 41, copies)
     x = _t(x).cuda()
     y = None if y is None else _t(y).cuda()
     rel = None if rel is None else _t(rel).cuda()
@@ -101,13 +115,20 @@ def test_kernel_keeps_exact_ties_on_card(kind, b, n, m, c, k):
     if kind == "zero":
         assert bool((got == torch.arange(k, device=got.device, dtype=torch.int32)).all())
     if kind != "zero-grapher":  # the Grapher's bias unties the copies
-        check_copies_of_key_3(got.cpu().numpy())
+        check_copies_of_key_3(got.cpu().numpy(), copies)
 
 
 @pytest.mark.parametrize("b,n,m,c,k,normalize,rel_batch", [
     (2, 300, None, 37, 16, True, 0),       # ragged self graph, no bias
     (2, 300, 70, 80, 9, True, 1),          # pooled keys, shared bias
     (3, 49, None, 640, 27, False, 3),      # last pvig stage, per-image bias
+    (2, 300, 196, 80, 1, True, 1),         # k = 1
+    (2, 300, 196, 80, 64, True, 2),        # k = 64, the largest
+    (2, 200, 27, 64, 27, True, 0),         # M = k
+    (1, 1, 196, 400, 18, True, 1),         # one query of one image
+    (2, 300, 196, 1, 9, False, 0),         # C = 1
+    (2, 49, None, 1024, 27, True, 1),      # C = 1024, pvig_b's last stage
+    (1, 300, 1000, 37, 16, True, 1),       # M = 1000: several key tiles
 ])
 def test_kernel_matches_plain_on_card(b, n, m, c, k, normalize, rel_batch):
     if not torch.cuda.is_available():

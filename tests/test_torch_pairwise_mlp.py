@@ -4,8 +4,8 @@ The port's plain version (`graphecho_torch.ops.pairwise_mlp.pairwise_mlp`)
 and its backward formulas run here on the CPU against the JAX XLA path
 (`graphecho_tpu.ops.pairwise_mlp.pairwise_mlp`) and the Pallas kernel in
 interpret mode, on the same numpy inputs. The CUDA kernels themselves run
-only on a GPU: `test_kernels_match_plain_on_card` holds them to the plain
-version there and skips elsewhere; `chip_smoke.py` does the same at the
+only on a GPU: `tests/test_torch_pairwise_mlp_card.py` holds them to the
+plain version there and skips elsewhere; `chip_smoke.py` does the same at the
 paper's shapes.
 
 Tolerances: forward atol 1e-4, gradients rtol/atol 1e-3, those of the JAX
@@ -92,21 +92,3 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pm.launch_bwd_db(a, b, w2, g)
 
-
-@pytest.mark.parametrize("n1,n2,k", [(70, 50, 40), (112, 112, 512), (560, 560, 512)])
-def test_kernels_match_plain_on_card(n1, n2, k):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    a, b, w2, b2, g = (torch.from_numpy(np.asarray(x)).cuda() for x in _inputs(n1, n2, k))
-    got = pm.PairwiseMLPFunction.apply(a, b, w2, b2)
-    np.testing.assert_allclose(got.cpu().numpy(), pm.pairwise_mlp(a, b, w2, b2).cpu().numpy(),
-                               atol=1e-4)
-    da, dw2, db2 = pm.launch_bwd_da(a, b, w2, g)
-    db = pm.launch_bwd_db(a, b, w2, g)
-    want = pm.pairwise_mlp_backward_reference(a, b, w2, g)
-    for name, x, w in zip(("dA", "dB", "dw2", "db2"), (da, db, dw2, db2[0]), want):
-        np.testing.assert_allclose(x.cpu().numpy(), w.cpu().numpy(), rtol=1e-3, atol=1e-3,
-                                   err_msg=name)
-    again = pm.launch_bwd_da(a, b, w2, g)
-    assert all(torch.equal(x, y) for x, y in zip((da, dw2, db2), again))
