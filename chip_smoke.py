@@ -15,16 +15,18 @@ Phases, each printing one JSON line:
      beside the least time the card could take;
   3b. knn: the kNN-graph kernel against its plain version at each pvig_s
      Grapher shape (batch 32, with the Grapher's relative-position bias), a
-     ragged self graph without bias and a normalize=False case with k=45 and
-     a per-image bias. Neighbours must equal the plain version's in order; a
+     ragged self graph without bias, a normalize=False case with k=45 and
+     a per-image bias, and the kernel's edges: k=1, k=64, M=k, and one query
+     of one image. Neighbours must equal the plain version's in order; a
      position where they differ passes only as a near tie, the two picks'
      distances recomputed in float64 within 1e-5. Two runs bit-identical;
      times and bound as above;
   3c. knn ties: the kNN kernel on inputs whose distances are exact (one-hot
      and integer rows, all-zero rows with and without the Grapher's bias), key
-     rows 3, 7 and 9 one row three times: neighbours equal to the plain
-     version's in order with no near-tie allowance, the copies of key 3 in
-     column order;
+     rows 3, 7 and 9 one row three times, and integer rows over 1,000 keys
+     whose copies sit at columns 3, 500 and 999, in three key tiles:
+     neighbours equal to the plain version's in order with no near-tie
+     allowance, the copies of key 3 in column order;
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
   5. camus: `train_camus_echo` with the paper's `camus_echo_config()`

@@ -13,44 +13,58 @@
 //
 // What bounds it on an H100: operations. The distance products are 2*N*M*C
 // per batch item against (N + M)*C inputs; at the ViG widths (C = 80..640,
-// M = 196) that is far above the card's ridge point. Here the products run on
-// the tensor cores as 3xTF32 `mma.sync` (each FP32 operand split into a TF32
-// high part and a TF32 remainder, hi*hi + hi*lo + lo*hi): FP32-level error,
-// so near ties keep the plain version's order within 1e-5, and values with
-// zero remainders (integers, powers of two) multiply exactly.
+// M = 196) that is far above the card's ridge point, so the FP32 CUDA-core
+// rate (67 TFLOP/s) sets the floor. The products stay on the CUDA cores in
+// FP32. Plain TF32 rounds far enough to reorder near-tied neighbours. A
+// 3xTF32 `mma.sync` version (hi*hi + hi*lo + lo*hi) kept the order within the
+// near-tie rule but was slower: 0.242 / 0.133 / 0.118 / 0.118 / 0.060 ms
+// against this file's 0.240 / 0.111 / 0.068 / 0.069 / 0.040 ms at the five
+// pvig_s Grapher shapes (`python -m graphecho_torch.knn_bench`, NVIDIA H100
+// 80GB HBM3, 700.00 W): its chains of three dependent mma wait on latency,
+// and splitting every operand into TF32 parts costs ALU work.
+// What sets the pace is the sequence of each block's phases (staging, products,
+// selection) and the bytes the blocks re-read from L2, not the FMAs.
 //
 // What the design does about it:
-//  * One launch per call, no scratch. A block owns BQ = 16 * MTQ queries of one
+//  * One launch per call, no scratch. A block owns BQ = 4 * RQ queries of one
 //    batch item and walks the keys in tiles of MT = 256 (one tile for every
 //    pvig shape, M <= 196), so the (N, M) distance matrix never reaches device
-//    memory. The C entry point picks 64, 32 or 16 queries a block.
+//    memory. Every block stages all the keys of its tile, so fewer, larger
+//    blocks move fewer bytes: the C entry point takes 32 queries wherever that
+//    gives each SM a block, else 16 or 8 while half the SMs get one (4 below).
 //  * Staging: each 16-channel chunk of the block's queries and of the tile's
-//    keys is copied into a shared-memory ring, as deep as shared memory allows, with `cp.async`
-//    (16 bytes a copy where rows allow it, zero-filled past C), the next
-//    chunk in flight while the current one is multiplied. The same shared
-//    rows give each row's sum of squares, so the norms cost no second pass
-//    and no other kernel. Only the valid rows of a ragged tile are copied,
-//    and warps skip 32-key groups past M: M = 196 computes 224 columns.
-//  * Products: m16n8k8 TF32 `mma.sync` tiles, warp w taking the 8-key column
-//    tiles w + 8j and all 16-query row tiles of the block; the dot products
-//    go to shared memory, and the selection warps form the distances.
+//    keys is copied into a three-stage shared-memory ring with `cp.async`
+//    (16 bytes a copy where rows allow it, zero-filled past C), two chunks in
+//    flight while one is multiplied. The same shared rows give each row's
+//    sum of squares, so the norms cost no second pass and no other kernel:
+//    the dot product of the raw rows is scaled by s_q s_k. Only the valid rows
+//    of a ragged tile are copied, and warps skip 32-key groups past M: M = 196
+//    computes 224 columns, not 256.
+//  * Products: warp w takes keys 32 * (2j + w % 2) + lane (j < 4) and RQ
+//    queries, an RQ x 4 block of dot products in registers, channels in
+//    increasing order. Query loads are broadcast, key loads are 16-byte
+//    reads free of bank conflicts. The distances, with the bias, go to shared
+//    memory as one row per query.
 //  * Selection orders by the pair (distance, column) everywhere, packed into
 //    one 64-bit key: the distance's bits mapped to an unsigned order (-0.0
 //    first made +0.0, which the stable sort treats as equal) above the
 //    column. Keys are unique, so the k smallest are exactly the first k of
-//    the plain version's stable sort, whatever order the merges run in. Per
-//    query one warp holds the tile's row, 8 keys a lane, drops those not
-//    below the current k-th key (the whole tile when none is), sorts each
-//    lane's survivors in registers, and merges them with the running list
-//    (entry p in lane p % 32) by k - s rounds of a warp minimum, where the
-//    first s list entries are below every survivor and stay in place.
+//    the plain version's stable sort, whatever order the merges run in. One
+//    warp per query holds the row, 8 keys a lane. In the first key tile a
+//    threshold, the k-th smallest of each lane's two smallest distances, lets
+//    through at least k keys and, at the pvig shapes, rarely more than 64;
+//    the survivors are packed into shared memory and sorted across the warp
+//    by a bitonic network. Otherwise (more survivors, or a later tile of a
+//    large M) the keys not below the running list's k-th are dropped (the
+//    whole tile when none is), each lane sorts its survivors, and k - s
+//    rounds of a warp minimum merge them with the list (entry p in lane
+//    p % 32), where the first s entries are below every survivor and stay.
 //  * No atomics: repeated runs are bit-identical.
 //
 // Plain C interface, loaded with ctypes. The entry point launches one kernel
 // on the given stream, allocates nothing, and returns a CUDA error code.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -60,16 +74,16 @@ typedef unsigned long long u64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MT = 256;          // keys per tile, one per thread for the row sums
-constexpr int NTW = MT / 8 / 8;  // 8-key column tiles per warp: 8 warps cover MT keys
+constexpr int RK = 4;            // 32-key groups per warp: 2 * RK * 32 = MT
 constexpr int KPL = MT / 32;     // keys of a tile row per lane in the selection
 constexpr int CC = 16;           // channels per staged chunk
 constexpr int CCP = CC + 4;      // padded row of a staged chunk (16-byte aligned)
-constexpr int MAX_STAGES = 8;    // chunks in the shared-memory ring, at most
+constexpr int NSTAGE = 3;        // chunks in the shared-memory ring
 constexpr int MAX_K = 64;        // largest k: two list entries per lane
 constexpr unsigned FULL = 0xffffffffu;
 constexpr u64 NONE = ~0ull;      // above every (distance, column) key
 
-static_assert(NTW * 8 * WARPS == MT && MT == THREADS, "tile layout");
+static_assert(2 * RK * 32 == MT && MT == THREADS, "tile layout");
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -86,20 +100,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>  // until at most N groups of copies are in flight
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// until chunk ch of a ring of `nstage` stages has landed (nstage - 2 groups
-// may stay in flight); 0 waits for all
-__device__ __forceinline__ void cp_async_wait_ring(int nstage) {
-  switch (nstage) {
-    case 8: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<1>(); break;
-    default: cp_async_wait<0>();
-  }
 }
 
 // Channels [c0, c0 + CC) of `rows` rows starting at `src` (row length c) into
@@ -161,13 +161,15 @@ __device__ __forceinline__ u64 bitonic_step(u64 v, int stride, bool keep_min) {
   return keep_min == (o < v) ? o : v;
 }
 
-// 32 keys, one per lane, sorted ascending across the warp
-__device__ __forceinline__ u64 sort_warp32(u64 v, int lane) {
+// keys of lanes [0, width) sorted ascending across them, width 16 or 32
+__device__ __forceinline__ u64 sort_warp32(u64 v, int lane, int width) {
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
+  for (int size = 2; size <= 32; size <<= 1) {
+    if (size > width) break;  // uniform
 #pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1)
       v = bitonic_step(v, stride, ((lane & stride) == 0) == ((lane & size) == 0));
+  }
   return v;
 }
 
@@ -207,20 +209,19 @@ __device__ __forceinline__ void sort_lane(u64 (&v)[KPL]) {  // bitonic network, 
       }
 }
 
-// The first k keys of a tile row (d[i] at column lane + 32 i, nk valid,
-// columns counted from j0), when few enough of them lie at or below a threshold that a warp sort
+// The first k keys of a tile row (kr floats at `row`, nk valid, columns from
+// j0), when few enough of them lie at or below a threshold that a warp sort
 // of the survivors is cheaper than the merge. The threshold is the k-th
 // smallest of the two smallest keys of each lane (k keys lie at or below it).
 // Returns false, leaving o0/o1 alone, when more than 64 keys survive.
-__device__ __forceinline__ bool select_by_threshold(const float (&d)[KPL], int nk, int j0,
-                                                    int k, u64* scratch, int lane, u64& o0,
-                                                    u64& o1) {
+__device__ __forceinline__ bool select_by_threshold(const float* row, int nk, int j0, int k,
+                                                    u64* scratch, int lane, u64& o0, u64& o1) {
   unsigned h[KPL];
   unsigned a = ~0u, a2 = ~0u;  // this lane's two smallest
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     const int col = lane + 32 * i;
-    h[i] = col < nk ? ordered(d[i]) : ~0u;
+    h[i] = col < nk ? ordered(row[col]) : ~0u;
     if (h[i] < a) {
       a2 = a;
       a = h[i];
@@ -250,7 +251,7 @@ __device__ __forceinline__ bool select_by_threshold(const float (&d)[KPL], int n
   if (count > 64) return false;  // uniform
   __syncwarp();
   if (count <= 32) {
-    o0 = sort_warp32(lane < count ? scratch[lane] : NONE, lane);
+    o0 = sort_warp32(lane < count ? scratch[lane] : NONE, lane, count <= 16 ? 16 : 32);
     o1 = NONE;
   } else {
     u64 e0 = scratch[lane], e1 = lane + 32 < count ? scratch[lane + 32] : NONE;
@@ -261,40 +262,17 @@ __device__ __forceinline__ bool select_by_threshold(const float (&d)[KPL], int n
   return true;
 }
 
-__device__ __forceinline__ unsigned to_tf32(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo with both parts in TF32: hi*hi + hi*lo + lo*hi is the FP32
-// product up to the lo*lo term (3xTF32)
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int MTQ>  // 16-query row tiles per block
+template <int RQ>
 __global__ void __launch_bounds__(THREADS, 2)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
            const float* __restrict__ rel, int* __restrict__ out, int n, int m, int c, int k,
-           int kr, int nstage, int rel_batched, int normalize, int vec16) {
-  constexpr int BQ = 16 * MTQ;
+           int kr, int rel_batched, int normalize, int vec16) {
+  constexpr int BQ = 4 * RQ;
   const int stage = (BQ + kr) * CCP;
-  const int dp = kr + 8;  // pitch of dist_s: the fragments' 8-byte stores spread over the banks
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* dot_s = smem;  // [BQ][dp] dot products, aliases the staging ring once they are done
-  float* s_q = smem + (nstage * stage > BQ * dp ? nstage * stage : BQ * dp);
+  float* dist_s = smem;  // [BQ][kr], aliases the staging ring once a tile's products are done
+  float* s_q = smem + (NSTAGE * stage > BQ * kr ? NSTAGE * stage : BQ * kr);
   float* sq_q = s_q + BQ;
   float* s_k = sq_q + BQ;
   float* sq_k = s_k + MT;
@@ -305,7 +283,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int q0 = blockIdx.x * BQ;
   const int nq = min(BQ, n - q0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int fr = lane / 4, fc = lane % 4;  // a fragment's row and column
+  const int half = warp % 2, group = warp / 2;
   const float* xb = x + ((size_t)b * n + q0) * c;
   const float* yb = y + (size_t)b * m * c;
   const float* relb = rel == nullptr ? nullptr : rel + (rel_batched ? (size_t)b * n * m : 0);
@@ -316,17 +294,15 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int j0 = tile * MT;
     const int nk = min(MT, m - j0);
     const float* yt = yb + (size_t)j0 * c;
-    // warp w takes the 8-key column tiles w + 8j
-    float acc[MTQ][NTW][4];
+    float acc[RQ][RK];
 #pragma unroll
-    for (int i = 0; i < MTQ; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < NTW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int j = 0; j < RK; ++j) acc[i][j] = 0.f;
     float ssq_k = 0.f, ssq_q = 0.f;
 
-    for (int s = 0; s < nstage - 1; ++s) {
+#pragma unroll
+    for (int s = 0; s < NSTAGE - 1; ++s) {
       if (s < chunks) {
         stage_rows(smem + s * stage, xb, nq, c, s * CC, vec16, tid);
         stage_rows(smem + s * stage + BQ * CCP, yt, nk, c, s * CC, vec16, tid);
@@ -334,50 +310,44 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
       cp_async_commit();
     }
     for (int ch = 0; ch < chunks; ++ch) {
-      cp_async_wait_ring(nstage);
+      cp_async_wait<NSTAGE - 2>();
       __syncthreads();  // chunk ch has landed; nobody still reads chunk ch - 1's stage
-      const int next = ch + nstage - 1;
+      const int next = ch + NSTAGE - 1;
       if (next < chunks) {
-        float* st = smem + (next % nstage) * stage;
+        float* st = smem + (next % NSTAGE) * stage;
         stage_rows(st, xb, nq, c, next * CC, vec16, tid);
         stage_rows(st + BQ * CCP, yt, nk, c, next * CC, vec16, tid);
       }
       cp_async_commit();
-      const float* q_st = smem + (ch % nstage) * stage;
+      const float* q_st = smem + (ch % NSTAGE) * stage;
       const float* k_st = q_st + BQ * CCP;
       if (tid < nk) ssq_k = sum_sq_chunk(k_st + tid * CCP, ssq_k);
       if (tid < nq) ssq_q = sum_sq_chunk(q_st + tid * CCP, ssq_q);
-      const int steps = (min(CC, c - ch * CC) + 7) / 8;  // 8-channel mma steps
-      for (int s8 = 0; s8 < steps; ++s8) {
-        const int c8 = 8 * s8 + fc;
-        unsigned bh[NTW][2], bl[NTW][2];
+      const int w4 = (min(CC, c - ch * CC) + 3) / 4;
+      for (int c4 = 0; c4 < w4; ++c4) {
+        float4 kv[RK];
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int nt = warp + WARPS * j;
-          if (8 * nt >= nk) continue;  // uniform across the warp
-          const float* kr0 = k_st + (8 * nt + fr) * CCP + c8;
-          split_tf32(kr0[0], bh[j][0], bl[j][0]);
-          split_tf32(kr0[4], bh[j][1], bl[j][1]);
+        for (int j = 0; j < RK; ++j) {
+          const int col = 32 * (2 * j + half);
+          if (col < nk)  // uniform across the warp
+            kv[j] = *reinterpret_cast<const float4*>(k_st + (col + lane) * CCP + 4 * c4);
         }
 #pragma unroll
-        for (int i = 0; i < MTQ; ++i) {
-          const float* qr = q_st + (16 * i + fr) * CCP + c8;
-          unsigned ah[4], al[4];
-          split_tf32(qr[0], ah[0], al[0]);
-          split_tf32(qr[8 * CCP], ah[1], al[1]);
-          split_tf32(qr[4], ah[2], al[2]);
-          split_tf32(qr[8 * CCP + 4], ah[3], al[3]);
+        for (int i = 0; i < RQ; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(q_st + (group * RQ + i) * CCP + 4 * c4);
 #pragma unroll
-          for (int j = 0; j < NTW; ++j) {
-            if (8 * (warp + WARPS * j) >= nk) continue;
-            mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);  // the small terms first
-            mma_tf32(acc[i][j], ah, bl[j][0], bl[j][1]);
-            mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
+          for (int j = 0; j < RK; ++j) {
+            if (32 * (2 * j + half) >= nk) continue;
+            acc[i][j] = fmaf(qv.x, kv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(qv.y, kv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(qv.z, kv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(qv.w, kv[j].w, acc[i][j]);
           }
         }
       }
     }
-    cp_async_wait_ring(0);
+    cp_async_wait<0>();
 
     // row scales and squared norms of the normalized rows
     if (tid < nk) {
@@ -390,42 +360,34 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
       s_q[tid] = f;
       sq_q[tid] = normalize ? ssq_q * f * f : ssq_q;
     }
-    __syncthreads();  // staging is done: its region becomes dot_s
+    __syncthreads();  // staging is done: its region becomes dist_s
 
 #pragma unroll
-    for (int i = 0; i < MTQ; ++i)
+    for (int i = 0; i < RQ; ++i) {
+      const int ql = group * RQ + i;
+      if (ql >= nq) continue;
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int nt = warp + WARPS * j;
-        if (8 * nt >= nk) continue;
-        float* d = dot_s + (16 * i + fr) * dp + 8 * nt + 2 * fc;
-        *reinterpret_cast<float2*>(d) = make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(d + 8 * dp) = make_float2(acc[i][j][2], acc[i][j][3]);
+      for (int j = 0; j < RK; ++j) {
+        const int col = 32 * (2 * j + half) + lane;
+        if (col >= nk) continue;
+        const float t = (acc[i][j] * s_q[ql]) * s_k[col];
+        float d = (sq_q[ql] - 2.f * t) + sq_k[col];
+        if (relb != nullptr) d += relb[(size_t)(q0 + ql) * m + j0 + col];
+        dist_s[ql * kr + col] = d;
       }
+    }
     __syncthreads();
 
-    // one warp per query: distances, then the tile's row merged into the query's k-best list
+    // one warp per query: merge the tile's row into the query's k-best list
     for (int ql = warp; ql < nq; ql += WARPS) {
-      const float* row = dot_s + ql * dp;
-      const float* rrow = relb == nullptr ? nullptr : relb + (size_t)(q0 + ql) * m + j0;
-      float d[KPL];
-#pragma unroll
-      for (int i = 0; i < KPL; ++i) {
-        const int col = lane + 32 * i;
-        d[i] = 0.f;
-        if (col < nk) {  // the plain version's order of operations
-          const float t = (row[col] * s_q[ql]) * s_k[col];
-          d[i] = (sq_q[ql] - 2.f * t) + sq_k[col];
-          if (rrow != nullptr) d[i] += rrow[col];
-        }
-      }
+      const float* row = dist_s + ql * kr;
       u64 o0 = NONE, o1 = NONE;  // the new list, entries lane and lane + 32
-      if (tile > 0 || !select_by_threshold(d, nk, j0, k, scratch + warp * 64, lane, o0, o1)) {
+      if (tile > 0 || !select_by_threshold(row, nk, j0, k, scratch + warp * 64, lane, o0, o1)) {
         u64 v[KPL];
 #pragma unroll
         for (int i = 0; i < KPL; ++i) {
           const int col = lane + 32 * i;
-          v[i] = col < nk ? pack(ordered(d[i]), j0 + col) : NONE;
+          v[i] = col < nk ? pack(ordered(row[col]), j0 + col) : NONE;
         }
         u64 l0 = NONE, l1 = NONE;  // the old list
         bool merge = true;
@@ -484,37 +446,31 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ y,
         if (lane + 32 < k) orow[lane + 32] = static_cast<int>(o1 & 0xffffffffu);
       }
     }
-    __syncthreads();  // dot_s and the list are read before the next tile is staged
+    __syncthreads();  // dist_s and the list are read before the next tile is staged
   }
 }
 
 constexpr int MAX_DEVICES = 64;
-constexpr size_t SMEM_PER_BLOCK = 113 * 1024;  // two blocks on an SM's 228 KB
 
-template <int MTQ>
+template <int RQ>
 int launch(const float* x, const float* y, const float* rel, int* out, int b, int n, int m,
            int c, int k, int rel_batch, int normalize, int vec16, int dev, cudaStream_t s) {
-  constexpr int BQ = 16 * MTQ;
+  constexpr int BQ = 4 * RQ;
   const int kr = m < MT ? (m + 31) / 32 * 32 : MT;  // key rows a tile stages
-  const size_t stage = sizeof(float) * (BQ + kr) * CCP;
-  const size_t fixed = sizeof(float) * (2 * BQ + 2 * MT) +
-                       sizeof(u64) * (WARPS * 64 + (m > MT ? (size_t)BQ * k : 0));
-  // as deep a ring as two blocks per SM leave room for, and no deeper than the chunks
-  const int chunks = (c + CC - 1) / CC;
-  int nstage = static_cast<int>((SMEM_PER_BLOCK - fixed) / stage);
-  nstage = max(2, min(min(nstage, MAX_STAGES), chunks + 1));
-  const size_t dots = sizeof(float) * BQ * (kr + 8);
-  const size_t smem = max(nstage * stage, dots) + fixed;
+  const int stage = (BQ + kr) * CCP;
+  const int region = NSTAGE * stage > BQ * kr ? NSTAGE * stage : BQ * kr;
+  const size_t smem = sizeof(float) * (region + 2 * BQ + 2 * MT) +
+                      sizeof(u64) * (WARPS * 64 + (m > MT ? (size_t)BQ * k : 0));
   static size_t granted[MAX_DEVICES] = {};  // shared memory granted per device, host side
   if (smem > 48 * 1024 && (dev >= MAX_DEVICES || smem > granted[dev])) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_kernel<MTQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        knn_kernel<RQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < MAX_DEVICES) granted[dev] = smem;
   }
   const dim3 grid((n + BQ - 1) / BQ, b);
-  knn_kernel<MTQ><<<grid, THREADS, smem, s>>>(x, y, rel, out, n, m, c, k, kr, nstage,
-                                             rel_batch > 1, normalize, vec16);
+  knn_kernel<RQ><<<grid, THREADS, smem, s>>>(x, y, rel, out, n, m, c, k, kr, rel_batch > 1,
+                                            normalize, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -545,11 +501,13 @@ int knn(const float* x, const float* y, const float* rel, int* out, int b, int n
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < MAX_DEVICES) sm_count[dev] = sms;
   }
-  // 64 queries a block where that gives every SM four blocks, else 32 where
-  // it gives two, else 16
+  // Queries per block: as many as keep the SMs busy. Every block stages all
+  // the keys, so fewer, larger blocks move fewer bytes: 32 queries wherever
+  // that gives every SM a block, else 16 or 8 while half the SMs get one.
   auto blocks = [&](int bq) { return (long long)b * ((n + bq - 1) / bq); };
-  if (blocks(64) >= 4LL * sms) return launch<4>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
-  if (blocks(32) >= 2LL * sms) return launch<2>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
+  if (blocks(32) >= sms) return launch<8>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
+  if (2 * blocks(16) >= sms) return launch<4>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
+  if (2 * blocks(8) >= sms) return launch<2>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
   return launch<1>(x, y, r, out, b, n, m, c, k, rel_batch, normalize, vec16, dev, s);
 }
 
