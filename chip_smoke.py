@@ -8,11 +8,14 @@ Phases, each printing one JSON line:
   1. environment: torch/CUDA versions, TF32 switched off, the card's name and
      power limit from nvidia-smi;
   2. build: `nvcc` of every source in graphecho_torch/csrc, all at once;
-  3. kernels: the pairwise-MLP forward and backward kernels against the plain
-     version at (112,112,512), (560,560,512) and a ragged (70,50,40): forward
-     atol 1e-4, gradients rtol/atol 1e-3 (the JAX package's own bounds), two
-     backward runs bit-identical; CUDA-event times (median of 20 after warm-up)
-     beside the least time the card could take;
+  3. kernels: the pairwise-MLP forward and backward (`launch_bwd`: dA, dB,
+     dw2, db2) against the plain version at (112,112,512), (560,560,512) and a
+     ragged (70,50,40): forward atol 1e-4, gradients rtol/atol 1e-3 (the JAX
+     package's own bounds), two backward runs bit-identical in all four
+     outputs; CUDA-event times (median of 20 after warm-up) beside the least
+     time the card could take. Then `kernel_exact` lines: integer inputs whose
+     sums every version computes exactly (many a+b exactly 0), where the
+     backward must equal the plain version bit for bit;
   3b. knn: the kNN-graph kernel against its plain version at each pvig_s
      Grapher shape (batch 32, with the Grapher's relative-position bias), a
      ragged self graph without bias, a normalize=False case with k=45 and
@@ -131,6 +134,38 @@ def phase_build():
          per_source=dict(cuda_build.BUILD_SECONDS))
 
 
+def bwd_work(n1: int, n2: int, k: int):
+    """(operations, bytes) the pairwise-MLP backward needs at least: per
+    (i, j, k) the add, the comparison and one accumulation each into S_A and
+    S_B; per row of a or b and column k the multiply-add of dw2 and the
+    scaling by w2; per (i, j) the add of db2. Each input (a, b, w2, g) read
+    once and each output (dA, dB, dw2, db2) written once."""
+    ops = 4 * n1 * n2 * k + 3 * (n1 + n2) * k + n1 * n2
+    return ops, 4 * (2 * (n1 * k + n2 * k + k) + n1 * n2 + 1)
+
+
+def check_backward(what: str, a, b, w2, g, exact: bool):
+    """`launch_bwd` against the plain formulas: rtol/atol 1e-3, or equal bit
+    for bit where `exact`; two runs bit-identical in all four outputs.
+    Returns ({output: max abs err}, the four outputs)."""
+    from graphecho_torch.ops import pairwise_mlp as pm
+
+    got = pm.launch_bwd(a, b, w2, g)
+    want = pm.pairwise_mlp_backward_reference(a, b, w2, g)
+    errs = {}
+    for name, x, w in zip(("dA", "dB", "dw2", "db2"), got, want):
+        w = w.reshape(x.shape)
+        diff = (x - w).abs()
+        ok = torch.equal(x, w) if exact else bool((diff <= 1e-3 + 1e-3 * w.abs()).all())
+        check(ok, f"{name} {what}: max abs err {diff.max().item()}"
+                  + (" on exact inputs" if exact else ""))
+        errs[name] = diff.max().item()
+    again = pm.launch_bwd(a, b, w2, g)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"backward {what}: two runs differ in their bits")
+    return errs, got
+
+
 def phase_kernels():
     """Each kernel against the plain version on the card; returns the rows of
     the `kernels` line at the main path's shape."""
@@ -148,57 +183,51 @@ def phase_kernels():
         ref = pm.pairwise_mlp(a, b, w2, b2)
         err_fwd = (out - ref).abs().max().item()
         check(err_fwd <= 1e-4, f"forward {n1}x{n2}x{k}: max abs err {err_fwd}")
+        errs, _ = check_backward(f"{n1}x{n2}x{k}", a, b, w2, g, exact=False)
 
-        da, dw2, db2 = pm.launch_bwd_da(a, b, w2, g)
-        db = pm.launch_bwd_db(a, b, w2, g)
-        r_da, r_db, r_dw2, r_db2 = pm.pairwise_mlp_backward_reference(a, b, w2, g)
-        errs = {}
-        for name, got, want in (("dA", da, r_da), ("dB", db, r_db), ("dw2", dw2, r_dw2),
-                                ("db2", db2[0], r_db2)):
-            diff = (got - want).abs()
-            check(bool((diff <= 1e-3 + 1e-3 * want.abs()).all()),
-                  f"{name} {n1}x{n2}x{k}: max abs err {diff.max().item()}")
-            errs[name] = diff.max().item()
-        again_da = pm.launch_bwd_da(a, b, w2, g)
-        again_db = pm.launch_bwd_db(a, b, w2, g)
-        deterministic = (all(torch.equal(x, y) for x, y in zip((da, dw2, db2), again_da))
-                         and torch.equal(db, again_db))
-        check(deterministic, f"backward {n1}x{n2}x{k}: two runs differ in their bits")
-
-        # ops per (i, j, k) of each formula: fwd a+b, relu, *w2, +;
-        # dA/dw2 a+b, >0, g*mask and its +, relu, g*relu and its +;
-        # dB a+b, >0, g*mask and its +
-        nijk = n1 * n2 * k
+        # forward: per (i, j, k) a+b, relu, *w2, +
         in_bytes = 4 * (n1 * k + n2 * k + k)
         kernels = {
             "pairwise_mlp_fwd": (lambda: pm.launch_fwd(a, b, w2),
                                  lambda: pm.pairwise_mlp(a, b, w2, b2),
-                                 4 * nijk, in_bytes + 4 * n1 * n2, err_fwd, 37),
-            "pairwise_mlp_bwd_da": (lambda: pm.launch_bwd_da(a, b, w2, g),
-                                    lambda: pm._plain_bwd_da(a, b, w2, g),
-                                    7 * nijk, in_bytes + 4 * n1 * n2 + 4 * (n1 * k + k + 1),
-                                    max(errs["dA"], errs["dw2"], errs["db2"]), 56),
-            "pairwise_mlp_bwd_db": (lambda: pm.launch_bwd_db(a, b, w2, g),
-                                    lambda: pm._plain_bwd_db(a, b, w2, g),
-                                    4 * nijk, in_bytes + 4 * n1 * n2 + 4 * n2 * k,
-                                    errs["dB"], 91),
+                                 (4 * n1 * n2 * k, in_bytes + 4 * n1 * n2), err_fwd,
+                                 "graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py:37"),
+            "pairwise_mlp_bwd": (lambda: pm.launch_bwd(a, b, w2, g),
+                                 lambda: pm.pairwise_mlp_backward_reference(a, b, w2, g),
+                                 bwd_work(n1, n2, k), max(errs.values()),
+                                 "graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py:56,91"),
         }
-        for name, (kernel, plain, ops, nbytes, err, line) in kernels.items():
+        for name, (kernel, plain, (ops, nbytes), err, replaces) in kernels.items():
             # compare two versions inside one call, in turns
             plain_ms = cuda_ms(plain)
             ms = cuda_ms(kernel)
             ms = min(ms, cuda_ms(kernel))
             plain_ms = min(plain_ms, cuda_ms(plain))
             bound_ms, bound_by = bound(ops, nbytes)
-            emit("kernel", name=name, shape=[n1, n2, k], max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 deterministic=deterministic)
+            emit("kernel", name=name, shape=[n1, n2, k], max_abs_err=err,
+                 errors=errs if name == "pairwise_mlp_bwd" else None, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, deterministic=True)
             if (n1, n2, k) == MAIN_SHAPE:
                 rows[name] = {"name": name, "route": "cuda",
                               "source": "graphecho_torch/csrc/pairwise_mlp.cu",
-                              "replaces": f"graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py:{line}",
-                              "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                              "replaces": replaces, "launches": 0, "max_abs_err": err,
+                              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None}
+
+    # integer a, b in [-4, 4] (many a+b exactly 0), g in [-3, 3], w2 in [-2, 2]:
+    # every sum stays below 2^24, so each version computes it exactly
+    for n1, n2, k in ((560, 560, 512), (70, 50, 40)):
+        gen = torch.Generator(device="cuda").manual_seed(n1 + 3 * k)
+
+        def ints(lo, hi, *shape):
+            return torch.randint(lo, hi + 1, shape, device="cuda", generator=gen).float()
+
+        a, b, w2, g = ints(-4, 4, n1, k), ints(-4, 4, n2, k), ints(-2, 2, k), ints(-3, 3, n1, n2)
+        zeros = int(((a[:, None, :] + b[None, :, :]) == 0).sum())
+        errs, got = check_backward(f"{n1}x{n2}x{k} exact", a, b, w2, g, exact=True)
+        emit("kernel_exact", name="pairwise_mlp_bwd", shape=[n1, n2, k], equal=True,
+             max_abs_err=max(errs.values()), zero_sums=zeros, deterministic=True,
+             max_abs_dw2=got[2].abs().max().item())
     torch.cuda.synchronize()
     return rows
 

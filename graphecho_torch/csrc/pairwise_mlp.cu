@@ -1,45 +1,62 @@
 // Fused pairwise-MLP affinity, forward and backward, for Hopper (sm_90a).
 //
 //   M[i,j]  = sum_k w2[k] * relu(a[i,k] + b[j,k])          (+ b2 outside)
-//   dA[i,k] = w2[k] * sum_j g[i,j] * 1[a_ik + b_jk > 0]
-//   dB[j,k] = w2[k] * sum_i g[i,j] * 1[a_ik + b_jk > 0]
+//   dA[i,k] = w2[k] * S_A[i,k],   S_A[i,k] = sum_j g[i,j] * 1[a_ik + b_jk > 0]
+//   dB[j,k] = w2[k] * S_B[j,k],   S_B[j,k] = sum_i g[i,j] * 1[a_ik + b_jk > 0]
 //   dw2[k]  = sum_ij g[i,j] * relu(a_ik + b_jk)
+//           = sum_i a_ik * S_A[i,k] + sum_j b_jk * S_B[j,k]   (relu(t) = t * 1[t > 0])
 //   db2     = sum_ij g[i,j]
 //
 // Replaces the Pallas TPU kernels of
 // graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py: `_fwd_kernel` (via
-// `_forward`), `_bwd_da_kernel` and `_bwd_db_kernel` (via `_backward`).
+// `_forward`) with `fwd_kernel`, and both `_bwd_da_kernel` and
+// `_bwd_db_kernel` (via `_backward`) with the one backward entry point
+// `pairwise_mlp_bwd`: `pairwise_bwd_kernel`, then `pairwise_finish_kernel`.
 //
-// What bounds it on an H100: operations. Each (i, j, k) costs an add, a max,
-// a multiply and an accumulate; at the paper shapes (112 or 560 nodes a side,
-// K = 512) that is 4*N1*N2*K = 26 or 642 Mop against a few MB of input, so
-// the work sits far above the card's ridge point and the FP32 CUDA-core rate
-// (67 TFLOP/s) sets the floor. A ReLU sits between the add and the reduction,
-// so the sum is not a matrix product and the tensor cores cannot take it.
+// What bounds the backward on an H100: FP32 operations that cannot use the
+// tensor cores. Each (i, j, k) needs an add, a comparison and one
+// accumulation each into S_A and S_B: 4 * N1 * N2 * K = 642 Mop at the
+// cardiac shape (560 x 560 x 512) against a few MB of inputs, far above the
+// card's ridge point. Adds and comparisons issue one per lane per clock, half
+// the FMA-counted 67 TFLOP/s, so the issue slots set the floor: about
+// 4 * 160.6 M / (132 SMs * 128 lanes * 1.98 GHz) = 19 us at 560^2. The
+// comparison sits between the add and the reduction, so no part of it is a
+// matrix product.
 //
-// What the design does about it: the (N1, N2, K) broadcast never exists in
-// device memory (the plain version materialises it). Each block stages the
-// rows it needs in shared memory in K-chunks (forward) or j/i-chunks
-// (backward) and every thread accumulates in registers, so a value read from
-// device memory is reused 16 (forward) or 32 (backward) times from shared
-// memory. Ragged rows and a ragged K are masked with zeros instead of padded
-// to a tile multiple: a zero row of `g` or a zero column of `w2` adds nothing.
-// The backward reduction of dw2 and db2 across rows is a second pass in a
-// fixed order with no atomics, so repeated runs give identical bits.
+// What the design does about it:
+//  * Register tiles. A block owns 32 columns of k (one per lane), TI = 32 rows
+//    of i and one part of the j axis. Every thread keeps the 32 values a[i,k]
+//    of its column and their 32 S_A sums in registers. Its warp walks its
+//    share of j four rows at a time: b[j,k] comes from shared memory, and g
+//    from a float4 broadcast read that serves 4 (i, j) pairs of all 32 lanes.
+//    So a triple costs the add, the comparison and two predicated adds, plus
+//    a quarter of a shared load per i row of four j.
+//  * One pass. S_A and S_B accumulate together: S_B of four j rows is
+//    complete over the block's 32 i rows when the warp leaves them, and goes
+//    to scratch as the block's partial. S_A is summed over the block's four
+//    warps in shared memory at the end and goes to scratch as the partial of
+//    its j part. The parts are chosen so that the grid holds about four
+//    blocks per SM; at 560^2 that is 2 parts and 576 blocks.
+//  * dw2 leaves the triple loop. By the identity above each block adds
+//    a * S_A and b * S_B of its own partial sums, unscaled, so a zero in w2
+//    loses nothing; db2 is summed from the g values the block stages.
+//  * No atomics. `pairwise_finish_kernel` adds the partials in a fixed order,
+//    one thread per output across the whole card, scales by w2, and sums the
+//    per-block dw2 and db2 partials; repeated runs give identical bits.
+//    Ragged rows and a ragged K are masked with zeros: a zero of g adds
+//    nothing and a masked column is never written.
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int FT = 16;   // forward output tile: FT x FT threads, one output each
 constexpr int FKC = 64;  // forward K-chunk staged in shared memory
-
-constexpr int BK = 32;   // backward: k columns per block (threadIdx.x)
-constexpr int BR = 8;    // backward: output rows per block (threadIdx.y)
-constexpr int BC = 32;   // backward: rows of the reduced axis staged per chunk
 
 __global__ void fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                            const float* __restrict__ w2, float* __restrict__ out,
@@ -71,111 +88,204 @@ __global__ void fwd_kernel(const float* __restrict__ a, const float* __restrict_
   if (i < n1 && j < n2) out[(size_t)i * n2 + j] = acc;
 }
 
-// One thread per (i, k); loops over j. Writes dA and the per-(i, k) partial
-// of dw2 (summed over j); `finish_kernel` reduces the partials over i.
-__global__ void bwd_da_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                              const float* __restrict__ w2, const float* __restrict__ g,
-                              float* __restrict__ da, float* __restrict__ dw2_part,
-                              int n1, int n2, int k) {
-  __shared__ float b_s[BC][BK];
-  __shared__ float g_s[BR][BC + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * BK + tx;
-  const int kk = blockIdx.x * BK + tx;
-  const int i = blockIdx.y * BR + ty;
-  const bool live = i < n1 && kk < k;
-  const float av = live ? a[(size_t)i * k + kk] : 0.f;
-  float acc_m = 0.f, acc_r = 0.f;
-  for (int j0 = 0; j0 < n2; j0 += BC) {
-    for (int e = tid; e < BC * BK; e += BK * BR) {
-      const int r = e / BK, c = e % BK;
-      const int j = j0 + r, col = blockIdx.x * BK + c;
-      b_s[r][c] = (j < n2 && col < k) ? b[(size_t)j * k + col] : 0.f;
+
+constexpr int BK = 32;   // backward: k columns per block, one per lane
+constexpr int TI = 32;   // backward: kept-axis rows per block, all held by every thread
+constexpr int WJ = 4;    // backward: warps per block, each taking its own reduced-axis rows
+constexpr int RJ = 4;    // backward: reduced-axis rows a warp takes at once (one float4 of g)
+constexpr int SJ = 2 * WJ * RJ;  // reduced-axis rows staged in shared memory at once
+constexpr int GS = SJ + 4;       // row stride of the staged g tile (keeps float4 reads aligned)
+constexpr int TARGET_BLOCKS = 4 * 132;  // about four blocks for each SM of an H100
+constexpr int FIN = 256;  // threads per block of the finishing pass
+
+// How the backward cuts its work: `kt` column tiles, `tiles` tiles of TI kept
+// rows, and the reduced axis in `splits` parts of `span` rows (a multiple of
+// SJ), as many parts as bring the grid near TARGET_BLOCKS.
+struct Plan {
+  int kt, tiles, splits, span;
+};
+
+Plan plan(int nx, int ny, int k) {
+  Plan p;
+  p.kt = (k + BK - 1) / BK;
+  p.tiles = (nx + TI - 1) / TI;
+  const long long base = (long long)p.kt * p.tiles;
+  const int stages = (ny + SJ - 1) / SJ;
+  const int want = (int)std::max(1LL, std::min((long long)stages,
+                                               (TARGET_BLOCKS + base - 1) / base));
+  p.span = (stages + want - 1) / want * SJ;
+  p.splits = (ny + p.span - 1) / p.span;
+  return p;
+}
+
+// Block (column tile, kept-row tile `it`, reduced-axis part `s`). x holds the
+// kept rows (nx, k), y the reduced-axis rows (ny, k); g[i, j] of kept row i and
+// reduced row j sits at g[i * g_rs + j * g_cs]. Writes
+//   part_x[s, i, k]  = sum over the part's j of g * 1[x_ik + y_jk > 0]
+//   part_y[it, j, k] = sum over the tile's i of the same     (FUSED only)
+//   dw_part[it * splits + s, k] = sum_i x * part_x + sum_j y * part_y
+//   g_part[it * splits + s]     = sum of the block's g tile  (column tile 0)
+template <bool FUSED>
+__global__ void __launch_bounds__(WJ * 32)
+pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ g, int g_rs, int g_cs,
+                    float* __restrict__ part_x, float* __restrict__ part_y,
+                    float* __restrict__ dw_part, float* __restrict__ g_part,
+                    int nx, int ny, int k, int splits, int span) {
+  __shared__ __align__(16) float gs[TI][GS];
+  __shared__ float ys[SJ][BK];
+  __shared__ float red[WJ][TI][BK];
+  __shared__ float gsum_s[WJ * 32];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int kt = blockIdx.x, it = blockIdx.y, s = blockIdx.z;
+  const int kk = kt * BK + lane;
+  const bool kin = kk < k;
+  const int i0 = it * TI;
+  const int jb = s * span, je = min(ny, jb + span);
+
+  float xv[TI], sx[TI];
+#pragma unroll
+  for (int r = 0; r < TI; ++r) {
+    xv[r] = (kin && i0 + r < nx) ? x[(size_t)(i0 + r) * k + kk] : 0.f;
+    sx[r] = 0.f;
+  }
+  float dw = 0.f, gsum = 0.f;
+
+  for (int j0 = jb; j0 < je; j0 += SJ) {
+    // g tile (TI x SJ) and y tile (SJ x BK), zero past the edges; neighbouring
+    // threads read neighbouring addresses of g whichever way it is laid out
+    for (int e = tid; e < TI * SJ; e += WJ * 32) {
+      const int r = g_cs == 1 ? e / SJ : e % TI;
+      const int c = g_cs == 1 ? e % SJ : e / TI;
+      const float v = (i0 + r < nx && j0 + c < je)
+                          ? g[(size_t)(i0 + r) * g_rs + (size_t)(j0 + c) * g_cs] : 0.f;
+      gs[r][c] = v;
+      gsum += v;
     }
-    for (int e = tid; e < BR * BC; e += BK * BR) {
-      const int r = e / BC, c = e % BC;
-      const int ii = blockIdx.y * BR + r, j = j0 + c;
-      g_s[r][c] = (ii < n1 && j < n2) ? g[(size_t)ii * n2 + j] : 0.f;
+    for (int e = tid; e < SJ * BK; e += WJ * 32) {
+      const int c = e / BK, col = kt * BK + e % BK;
+      ys[c][e % BK] = (j0 + c < je && col < k) ? y[(size_t)(j0 + c) * k + col] : 0.f;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BC; ++c) {
-      const float t = av + b_s[c][tx];
-      const float gv = g_s[ty][c];
-      if (t > 0.f) {
-        acc_m += gv;
-        acc_r = fmaf(gv, t, acc_r);
+#pragma unroll
+    for (int u = 0; u < SJ / (WJ * RJ); ++u) {
+      const int c = (u * WJ + w) * RJ;
+      float yv[RJ], sy[RJ];
+#pragma unroll
+      for (int q = 0; q < RJ; ++q) {
+        yv[q] = ys[c + q][lane];
+        sy[q] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < TI; ++r) {
+        const float4 gv = *reinterpret_cast<const float4*>(&gs[r][c]);
+        const float gq[RJ] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int q = 0; q < RJ; ++q) {
+          if (xv[r] + yv[q] > 0.f) {
+            sx[r] += gq[q];
+            if (FUSED) sy[q] += gq[q];
+          }
+        }
+      }
+      if (FUSED) {
+#pragma unroll
+        for (int q = 0; q < RJ; ++q) {
+          const int j = j0 + c + q;
+          if (kin && j < je) part_y[((size_t)it * ny + j) * k + kk] = sy[q];
+          dw = fmaf(yv[q], sy[q], dw);
+        }
       }
     }
     __syncthreads();
   }
-  if (live) {
-    da[(size_t)i * k + kk] = w2[kk] * acc_m;
-    dw2_part[(size_t)i * k + kk] = acc_r;
-  }
-}
 
-// One thread per (j, k); loops over i.
-__global__ void bwd_db_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                              const float* __restrict__ w2, const float* __restrict__ g,
-                              float* __restrict__ db, int n1, int n2, int k) {
-  __shared__ float a_s[BC][BK];
-  __shared__ float g_s[BR][BC + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * BK + tx;
-  const int kk = blockIdx.x * BK + tx;
-  const int j = blockIdx.y * BR + ty;
-  const bool live = j < n2 && kk < k;
-  const float bv = live ? b[(size_t)j * k + kk] : 0.f;
-  float acc_m = 0.f;
-  for (int i0 = 0; i0 < n1; i0 += BC) {
-    for (int e = tid; e < BC * BK; e += BK * BR) {
-      const int r = e / BK, c = e % BK;
-      const int i = i0 + r, col = blockIdx.x * BK + c;
-      a_s[r][c] = (i < n1 && col < k) ? a[(size_t)i * k + col] : 0.f;
+  // S_A of the part: the four warps' sums of each (row, column), in warp order
+#pragma unroll
+  for (int r = 0; r < TI; ++r) red[w][r][lane] = sx[r];
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < TI / WJ; ++m) {
+    const int r = m * WJ + w, i = i0 + r;
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < WJ; ++v) sum += red[v][r][lane];
+    if (kin && i < nx) {
+      part_x[((size_t)s * nx + i) * k + kk] = sum;
+      dw = fmaf(x[(size_t)i * k + kk], sum, dw);
     }
-    // g is (n1, n2) row-major: neighbouring threads take neighbouring j
-    for (int e = tid; e < BR * BC; e += BK * BR) {
-      const int r = e % BR, c = e / BR;
-      const int jj = blockIdx.y * BR + r, i = i0 + c;
-      g_s[r][c] = (jj < n2 && i < n1) ? g[(size_t)i * n2 + jj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BC; ++c) {
-      if (a_s[c][tx] + bv > 0.f) acc_m += g_s[ty][c];
-    }
+  }
+  __syncthreads();
+  red[w][0][lane] = dw;
+  gsum_s[tid] = gsum;
+  __syncthreads();
+  const int blk = it * splits + s;
+  if (w == 0 && kin) {
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < WJ; ++v) sum += red[v][0][lane];
+    dw_part[(size_t)blk * k + kk] = sum;
+  }
+  if (g_part == nullptr || kt != 0) return;
+  for (int h = WJ * 16; h > 0; h >>= 1) {
+    if (tid < h) gsum_s[tid] += gsum_s[tid + h];
     __syncthreads();
   }
-  if (live) db[(size_t)j * k + kk] = w2[kk] * acc_m;
+  if (tid == 0) g_part[blk] = gsum_s[0];
 }
 
-constexpr int FIN_THREADS = 256;
-
-// Blocks [0, nk): dw2[k] = sum_i dw2_part[i, k], one thread per k, i in order.
-// Block nk: db2 = sum of g, strided per thread then a fixed tree.
-__global__ void finish_kernel(const float* __restrict__ dw2_part,
-                              const float* __restrict__ g, float* __restrict__ dw2,
-                              float* __restrict__ db2, int n1, int n2, int k, int nk) {
-  if (blockIdx.x < nk) {
-    const int kk = blockIdx.x * FIN_THREADS + threadIdx.x;
-    if (kk >= k) return;
-    float s = 0.f;
-    for (int i = 0; i < n1; ++i) s += dw2_part[(size_t)i * k + kk];
-    dw2[kk] = s;
+// Threads [0, (nx + ny) * k): dx = w2 * (sum of x_parts partials), then dy
+// likewise, partials in order. The last blocks: dw2[k] = sum of dw_parts
+// partials, and thread 0 of them db2 = sum of g_parts partials.
+__global__ void __launch_bounds__(FIN)
+pairwise_finish_kernel(const float* __restrict__ px, int x_parts, int nx,
+                       float* __restrict__ dx, const float* __restrict__ py,
+                       int y_parts, int ny, float* __restrict__ dy,
+                       const float* __restrict__ w2, const float* __restrict__ dw_part,
+                       int dw_parts, float* __restrict__ dw2,
+                       const float* __restrict__ g_part, int g_parts,
+                       float* __restrict__ db2, int k, int elem_blocks) {
+  if ((int)blockIdx.x < elem_blocks) {
+    const size_t nxk = (size_t)nx * k, nyk = (size_t)ny * k;
+    size_t e = (size_t)blockIdx.x * FIN + threadIdx.x;
+    const float* p = px;
+    float* out = dx;
+    int parts = x_parts;
+    size_t stride = nxk;
+    if (e >= nxk) {
+      e -= nxk;
+      if (e >= nyk) return;
+      p = py, out = dy, parts = y_parts, stride = nyk;
+    }
+    float sum = 0.f;
+    for (int q = 0; q < parts; ++q) sum += p[q * stride + e];
+    out[e] = w2[e % k] * sum;
     return;
   }
-  __shared__ float part[FIN_THREADS];
-  const size_t total = (size_t)n1 * n2;
-  float s = 0.f;
-  for (size_t e = threadIdx.x; e < total; e += FIN_THREADS) s += g[e];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = FIN_THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
-    __syncthreads();
+  const int col = (blockIdx.x - elem_blocks) * FIN + threadIdx.x;
+  if (col < k) {
+    float sum = 0.f;
+    for (int q = 0; q < dw_parts; ++q) sum += dw_part[(size_t)q * k + col];
+    dw2[col] = sum;
   }
-  if (threadIdx.x == 0) db2[0] = part[0];
+  if (col == 0) {
+    float sum = 0.f;
+    for (int q = 0; q < g_parts; ++q) sum += g_part[q];
+    db2[0] = sum;
+  }
+}
+
+cudaError_t finish(const float* px, int x_parts, int nx, float* dx, const float* py,
+                   int y_parts, int ny, float* dy, const float* w2, const float* dw_part,
+                   int dw_parts, float* dw2, const float* g_part, int g_parts, float* db2,
+                   int k, cudaStream_t s) {
+  const long long elems = (long long)(nx + ny) * k;
+  const int elem_blocks = (int)((elems + FIN - 1) / FIN);
+  const int blocks = elem_blocks + (k + FIN - 1) / FIN;
+  pairwise_finish_kernel<<<blocks, FIN, 0, s>>>(px, x_parts, nx, dx, py, y_parts, ny, dy, w2,
+                                                dw_part, dw_parts, dw2, g_part, g_parts, db2,
+                                                k, elem_blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -191,30 +301,70 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-// dA, dw2 and db2: the per-(i, k) pass, then the fixed-order reduction pass.
-// `dw2_part` is (n1, k) scratch.
-int pairwise_mlp_bwd_da(const float* a, const float* b, const float* w2,
-                        const float* g, float* da, float* dw2_part, float* dw2,
-                        float* db2, int n1, int n2, int k, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(BK, BR);
-  const dim3 grid((k + BK - 1) / BK, (n1 + BR - 1) / BR);
-  bwd_da_kernel<<<grid, block, 0, s>>>(a, b, w2, g, da, dw2_part, n1, n2, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nk = (k + FIN_THREADS - 1) / FIN_THREADS;
-  finish_kernel<<<nk + 1, FIN_THREADS, 0, s>>>(dw2_part, g, dw2, db2, n1, n2, k, nk);
-  return static_cast<int>(cudaGetLastError());
+#ifndef PAIRWISE_TWO_PASS
+
+// Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
+// the S_B partials of each i tile, and each block's dw2 and db2 partials.
+long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
+  const Plan p = plan(n1, n2, k);
+  const long long blocks = (long long)p.tiles * p.splits;
+  return ((long long)p.splits * n1 + (long long)p.tiles * n2 + blocks) * k + blocks;
 }
 
-int pairwise_mlp_bwd_db(const float* a, const float* b, const float* w2,
-                        const float* g, float* db, int n1, int n2, int k,
-                        void* stream) {
-  const dim3 block(BK, BR);
-  const dim3 grid((k + BK - 1) / BK, (n2 + BR - 1) / BR);
-  bwd_db_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, w2, g, db, n1, n2, k);
-  return static_cast<int>(cudaGetLastError());
+// dA (n1, k), dB (n2, k), dw2 (k) and db2 (1) from a (n1, k), b (n2, k),
+// w2 (k) and the cotangent g (n1, n2): the fused pass, then the fixed-order
+// finishing pass.
+int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const float* g,
+                     float* da, float* db, float* dw2, float* db2, float* scratch,
+                     int n1, int n2, int k, void* stream) {
+  if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = plan(n1, n2, k);
+  float* part_a = scratch;
+  float* part_b = part_a + (size_t)p.splits * n1 * k;
+  float* dw_part = part_b + (size_t)p.tiles * n2 * k;
+  float* g_part = dw_part + (size_t)p.tiles * p.splits * k;
+  pairwise_bwd_kernel<true><<<dim3(p.kt, p.tiles, p.splits), WJ * 32, 0, s>>>(
+      a, b, g, n2, 1, part_a, part_b, dw_part, g_part, n1, n2, k, p.splits, p.span);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(part_a, p.splits, n1, da, part_b, p.tiles, n2, db, w2,
+                                 dw_part, p.tiles * p.splits, dw2, g_part,
+                                 p.tiles * p.splits, db2, k, s));
 }
+
+#else  // two passes: S_A with i kept and j reduced, then S_B with j kept and i reduced
+
+long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
+  const Plan pa = plan(n1, n2, k), pb = plan(n2, n1, k);
+  const long long ba = (long long)pa.tiles * pa.splits, bb = (long long)pb.tiles * pb.splits;
+  return ((long long)pa.splits * n1 + (long long)pb.splits * n2 + ba + bb) * k + ba;
+}
+
+int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const float* g,
+                     float* da, float* db, float* dw2, float* db2, float* scratch,
+                     int n1, int n2, int k, void* stream) {
+  if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan pa = plan(n1, n2, k), pb = plan(n2, n1, k);
+  const int ba = pa.tiles * pa.splits, bb = pb.tiles * pb.splits;
+  float* part_a = scratch;
+  float* part_b = part_a + (size_t)pa.splits * n1 * k;
+  float* dw_part = part_b + (size_t)pb.splits * n2 * k;
+  float* g_part = dw_part + (size_t)(ba + bb) * k;
+  pairwise_bwd_kernel<false><<<dim3(pa.kt, pa.tiles, pa.splits), WJ * 32, 0, s>>>(
+      a, b, g, n2, 1, part_a, nullptr, dw_part, g_part, n1, n2, k, pa.splits, pa.span);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pairwise_bwd_kernel<false><<<dim3(pb.kt, pb.tiles, pb.splits), WJ * 32, 0, s>>>(
+      b, a, g, 1, n2, part_b, nullptr, dw_part + (size_t)ba * k, nullptr, n2, n1, k,
+      pb.splits, pb.span);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(finish(part_a, pa.splits, n1, da, part_b, pb.splits, n2, db, w2,
+                                 dw_part, ba + bb, dw2, g_part, ba, db2, k, s));
+}
+
+#endif
 
 }  // extern "C"

@@ -26,8 +26,7 @@ import torch
 from graphecho_torch.ops import cuda_build
 
 # launches of each kernel entry point since the last `reset_launch_counts()`
-LAUNCHES: Dict[str, int] = {"pairwise_mlp_fwd": 0, "pairwise_mlp_bwd_da": 0,
-                            "pairwise_mlp_bwd_db": 0}
+LAUNCHES: Dict[str, int] = {"pairwise_mlp_fwd": 0, "pairwise_mlp_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -88,18 +87,25 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("pairwise_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pairwise_mlp_fwd.argtypes = [p, p, p, p, i, i, i, p]
-    lib.pairwise_mlp_bwd_da.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.pairwise_mlp_bwd_db.argtypes = [p, p, p, p, p, i, i, i, p]
-    for fn in (lib.pairwise_mlp_fwd, lib.pairwise_mlp_bwd_da,
-               lib.pairwise_mlp_bwd_db):
-        fn.restype = ctypes.c_int
+    lib.pairwise_mlp_fwd.restype = ctypes.c_int
+    lib.pairwise_mlp_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.pairwise_mlp_bwd.restype = ctypes.c_int
+    lib.pairwise_mlp_bwd_scratch_floats.argtypes = [i, i, i]
+    lib.pairwise_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(n1: int, n2: int, k: int) -> int:
+    """Floats of scratch the backward entry point needs at this shape."""
+    return _lib().pairwise_mlp_bwd_scratch_floats(n1, n2, k)
 
 
 def _check_inputs(a, b, w2, g=None) -> Tuple[int, int, int]:
     tensors = (a, b, w2) if g is None else (a, b, w2, g)
+    dev = a.get_device()  # -1 on the CPU; an int compares faster than a torch.device
     for t in tensors:
-        if (not t.is_cuda or t.device != a.device or t.dtype != torch.float32
+        if (dev < 0 or t.get_device() != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError("pairwise_mlp kernels take contiguous float32 tensors on "
                              f"one CUDA device, got {t.dtype} on {t.device} "
@@ -115,7 +121,8 @@ def _check_inputs(a, b, w2, g=None) -> Tuple[int, int, int]:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle of the current stream, without building a torch.cuda.Stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def launch_fwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -129,33 +136,24 @@ def launch_fwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor) -> torch.Tens
     return out
 
 
-def launch_bwd_da(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor,
-                  g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dA, dw2, db2) on the card; db2 has shape (1,)."""
+def launch_bwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dA, dB, dw2, db2) on the card for the cotangent `g` (N1, N2); db2 has
+    shape (1,)."""
     n1, n2, k = _check_inputs(a, b, w2, g)
-    da = torch.empty((n1, k), device=a.device, dtype=torch.float32)
-    part = torch.empty((n1, k), device=a.device, dtype=torch.float32)
-    dw2 = torch.empty((k,), device=a.device, dtype=torch.float32)
-    db2 = torch.empty((1,), device=a.device, dtype=torch.float32)
-    err = _lib().pairwise_mlp_bwd_da(
+    dev = a.device
+    da = torch.empty((n1, k), device=dev, dtype=torch.float32)
+    db = torch.empty((n2, k), device=dev, dtype=torch.float32)
+    dw2 = torch.empty((k,), device=dev, dtype=torch.float32)
+    db2 = torch.empty((1,), device=dev, dtype=torch.float32)
+    scratch = torch.empty((_scratch_floats(n1, n2, k),), device=dev, dtype=torch.float32)
+    err = _lib().pairwise_mlp_bwd(
         a.data_ptr(), b.data_ptr(), w2.data_ptr(), g.data_ptr(), da.data_ptr(),
-        part.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n1, n2, k, _stream(a))
-    cuda_build.check(err, "pairwise_mlp_bwd_da")
-    LAUNCHES["pairwise_mlp_bwd_da"] += 1
-    return da, dw2, db2
-
-
-def launch_bwd_db(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor,
-                  g: torch.Tensor) -> torch.Tensor:
-    """dB on the card."""
-    n1, n2, k = _check_inputs(a, b, w2, g)
-    db = torch.empty((n2, k), device=a.device, dtype=torch.float32)
-    err = _lib().pairwise_mlp_bwd_db(a.data_ptr(), b.data_ptr(), w2.data_ptr(),
-                                     g.data_ptr(), db.data_ptr(), n1, n2, k,
-                                     _stream(a))
-    cuda_build.check(err, "pairwise_mlp_bwd_db")
-    LAUNCHES["pairwise_mlp_bwd_db"] += 1
-    return db
+        db.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), n1, n2, k,
+        _stream(a))
+    cuda_build.check(err, "pairwise_mlp_bwd")
+    LAUNCHES["pairwise_mlp_bwd"] += 1
+    return da, db, dw2, db2
 
 
 class PairwiseMLPFunction(torch.autograd.Function):
@@ -172,9 +170,7 @@ class PairwiseMLPFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b, w2 = ctx.saved_tensors
-        g = g.contiguous()
-        da, dw2, db2 = launch_bwd_da(a, b, w2, g)
-        db = launch_bwd_db(a, b, w2, g)
+        da, db, dw2, db2 = launch_bwd(a, b, w2, g.contiguous())
         return da, db, dw2, db2.reshape(ctx.b2_shape)
 
 

@@ -8,8 +8,8 @@ one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. Prints one JSON object: the
 steady step time, the device's busy time per step (the union of its kernel intervals) and idle share, the
-number of kernel launches per step, the kNN-graph kernel's launches and device
-time per step, the host time in each phase of the step and the device time by
+number of kernel launches per step, the kNN-graph kernel's and the pairwise-MLP
+kernels' launches and device time per step, the host time in each phase of the step and the device time by
 kernel name. It needs a CUDA device and fails without
 one.
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import time
 from typing import Callable, Dict, List, Tuple
@@ -31,6 +32,21 @@ from graphecho_torch.train.trainer import Trainer
 
 RECIPES = {"camus": camus_echo_config, "cardiac": cardiac_uda_config}
 PVIG_BATCH = 32
+# the kernels of `csrc/pairwise_mlp.cu`; the last three are the names its
+# backward had before it became one entry point, so an older tree can be
+# profiled with this script too
+PAIRWISE_KERNELS = ("fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel",
+                    "bwd_da_kernel", "bwd_db_kernel", "finish_kernel")
+
+
+def kernel_base_name(name: str) -> str:
+    """The function name of a demangled kernel name: `fwd_kernel` of
+    'void (anonymous namespace)::fwd_kernel(float const*, ...)',
+    `pairwise_bwd_kernel` of '... pairwise_bwd_kernel<true>(...)'; the name
+    itself where neither form matches."""
+    match = (re.search(r"::(\w+)\s*(?:<[^()]*>)?\(", name)
+             or re.match(r"(?:\w+\s+)*?(\w+)\s*(?:<[^()]*>)?\(", name))
+    return match.group(1) if match else name
 
 
 def _busy_us(intervals: List[Tuple[float, float]]) -> float:
@@ -107,6 +123,13 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     knn = [e for e in kernels if "knn" in e.name]
+    pairwise: Dict[str, float] = {}
+    n_pairwise = 0
+    for e in kernels:
+        name = kernel_base_name(e.name)
+        if name in PAIRWISE_KERNELS:
+            n_pairwise += 1
+            pairwise[name] = pairwise.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     return {
         "recipe": recipe, "device": torch.cuda.get_device_name(0), "steps": steps,
         "step_ms": statistics.median(host_ms), "step_ms_all": host_ms,
@@ -116,6 +139,10 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
         # the kNN-graph kernel (`csrc/knn.cu`), every kernel whose name holds "knn"
         "knn_kernels_per_step": len(knn) / steps,
         "knn_device_ms": sum(e.time_range.end - e.time_range.start for e in knn) / 1e3 / steps,
+        # the pairwise-MLP kernels (`csrc/pairwise_mlp.cu`), by function name
+        "pairwise_kernels_per_step": n_pairwise / steps,
+        "pairwise_device_ms": sum(pairwise.values()) / 1e3 / steps,
+        "pairwise_device_ms_by_kernel": {k: us / 1e3 / steps for k, us in sorted(pairwise.items())},
         "host_ms_by_phase": {k: us / 1e3 / steps for k, us in sorted(spans.items())},
         "device_ms_by_kernel": [{"name": n[:120], "ms_per_step": us / 1e3 / steps,
                                  "share": us / total_us} for n, us in ranked],

@@ -52,11 +52,29 @@ def test_plain_forward_matches_jax_and_pallas_interpret(n1, n2, k):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas), atol=1e-4)
 
 
-@pytest.mark.parametrize("n1,n2,k", SHAPES)
-def test_backward_reference_and_autograd_match_jax_grad(n1, n2, k):
-    a, b, w2, b2, g = _inputs(n1, n2, k, seed=3)
-    _, vjp = jax.vjp(jax_pairwise_mlp, jnp.asarray(a), jnp.asarray(b), jnp.asarray(w2),
-                     jnp.asarray(b2))
+def _integer_inputs(n1, n2, k, seed=5):
+    """a, b in [-4, 4] (many a+b exactly 0), w2 in [-2, 2], g in [-3, 3]:
+    every sum is an integer below 2^24, so each version computes it exactly."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(-4, 5, (n1, k)).astype(np.float32),
+            rng.randint(-4, 5, (n2, k)).astype(np.float32),
+            rng.randint(-2, 3, k).astype(np.float32), np.float32(1.0),
+            rng.randint(-3, 4, (n1, n2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n1,n2,k,integer", [(70, 50, 40, False), (112, 112, 128, False),
+                                             (70, 50, 40, True)],
+                         ids=["70-50-40", "112-112-128", "70-50-40-integer"])
+def test_backward_reference_and_autograd_match_jax_grad(n1, n2, k, integer):
+    """Random inputs within rtol/atol 1e-3; on integer inputs the formulas,
+    autograd of the plain version, `jax.vjp` of the XLA path and of the
+    Pallas kernel in interpret mode agree exactly, so the mask at a+b = 0 is
+    the same (0) in all of them."""
+    a, b, w2, b2, g = _integer_inputs(n1, n2, k) if integer else _inputs(n1, n2, k, seed=3)
+    if integer:
+        assert ((a[:, None, :] + b[None, :, :]) == 0).any()
+    args = [jnp.asarray(x) for x in (a, b, w2, b2)]
+    _, vjp = jax.vjp(jax_pairwise_mlp, *args)
     want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
     ta, tb, tw2, tb2 = (torch.tensor(np.asarray(x), requires_grad=True)
@@ -65,10 +83,21 @@ def test_backward_reference_and_autograd_match_jax_grad(n1, n2, k):
     formulas = pm.pairwise_mlp_backward_reference(ta.detach(), tb.detach(), tw2.detach(), tg)
     pm.pairwise_mlp(ta, tb, tw2, tb2).backward(tg)
     autograd = (ta.grad, tb.grad, tw2.grad, tb2.grad)
-    for name, f, ag, w in zip(("dA", "dB", "dw2", "db2"), formulas, autograd, want):
-        report_parity(f"pairwise_mlp {name} {n1}x{n2}x{k} vs jax.vjp", f.numpy(), w)
-        np.testing.assert_allclose(f.numpy(), w, rtol=1e-3, atol=1e-3, err_msg=name)
-        np.testing.assert_allclose(ag.numpy(), w, rtol=1e-3, atol=1e-3, err_msg=name)
+    if integer:
+        _, vjp_pallas = jax.vjp(lambda *x: pallas_pairwise_mlp(*x, True), *args)
+        pallas = [np.asarray(x) for x in vjp_pallas(jnp.asarray(g))]
+    for i, (name, f, ag, w) in enumerate(zip(("dA", "dB", "dw2", "db2"), formulas, autograd,
+                                             want)):
+        report_parity(f"pairwise_mlp {name} {n1}x{n2}x{k}{' integer' if integer else ''} "
+                      "vs jax.vjp", f.numpy(), w)
+        if integer:
+            np.testing.assert_array_equal(f.numpy(), w, err_msg=name)
+            np.testing.assert_array_equal(ag.numpy(), w, err_msg=name)
+            np.testing.assert_array_equal(np.asarray(pallas[i]).reshape(w.shape), w,
+                                          err_msg=f"{name} Pallas interpret")
+        else:
+            np.testing.assert_allclose(f.numpy(), w, rtol=1e-3, atol=1e-3, err_msg=name)
+            np.testing.assert_allclose(ag.numpy(), w, rtol=1e-3, atol=1e-3, err_msg=name)
 
 
 def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
@@ -81,8 +110,7 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jax_pairwise_mlp(a, b, w2, b2)),
                                atol=1e-4)
     assert ta.grad is not None and tb2.grad is not None
-    assert pm.LAUNCHES == {"pairwise_mlp_fwd": 0, "pairwise_mlp_bwd_da": 0,
-                           "pairwise_mlp_bwd_db": 0}
+    assert pm.LAUNCHES == {"pairwise_mlp_fwd": 0, "pairwise_mlp_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -90,5 +118,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pm.launch_fwd(a, b, w2)
     with pytest.raises(ValueError, match="CUDA"):
-        pm.launch_bwd_db(a, b, w2, g)
+        pm.launch_bwd(a, b, w2, g)
 
