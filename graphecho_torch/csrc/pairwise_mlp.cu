@@ -89,173 +89,251 @@ __global__ void fwd_kernel(const float* __restrict__ a, const float* __restrict_
 }
 
 
-constexpr int BK = 32;   // backward: k columns per block, one per lane
-constexpr int TI = 32;   // backward: kept-axis rows per block, all held by every thread
-constexpr int WJ = 4;    // backward: warps per block, each taking its own reduced-axis rows
-constexpr int RJ = 4;    // backward: reduced-axis rows a warp takes at once (one float4 of g)
-constexpr int SJ = 2 * WJ * RJ;  // reduced-axis rows staged in shared memory at once
+constexpr int BK = 64;   // backward: k columns per block, two per lane (lane, lane + 32)
+constexpr int TI = 32;   // backward: i rows per block, all held by every thread
+constexpr int WJ = 4;    // backward: warps per block, each taking its own j rows
+constexpr int NT = WJ * 32;      // backward: threads per block
+constexpr int RJ = 4;            // backward: j rows a warp takes at once (one float4 of g)
+constexpr int SJ = 2 * WJ * RJ;  // backward: j rows staged in shared memory at once
 constexpr int GS = SJ + 4;       // row stride of the staged g tile (keeps float4 reads aligned)
-constexpr int TARGET_BLOCKS = 4 * 132;  // about four blocks for each SM of an H100
+constexpr int STAGE = TI * GS + SJ * BK;  // floats of one stage: the g tile, then the b tile
+constexpr int RED = WJ * TI * 32;  // floats of the buffer that sums S_A over the warps
+constexpr int MAX_SPAN = 4 * SJ;   // most j rows of one block
+constexpr int SMEM_BYTES = (2 * STAGE + RED + MAX_SPAN * BK) * 4;
+constexpr int SLOTS = 2 * 132;  // blocks an H100 holds at once at this kernel's registers
 constexpr int FIN = 256;  // threads per block of the finishing pass
+constexpr int MAX_DEVICES = 64;
 
-// How the backward cuts its work: `kt` column tiles, `tiles` tiles of TI kept
-// rows, and the reduced axis in `splits` parts of `span` rows (a multiple of
-// SJ), as many parts as bring the grid near TARGET_BLOCKS.
+// How the backward cuts its work: `kt` column tiles of BK; `tiles` tiles of TI
+// rows of i, taken `per` at a time by a block (`groups` of them); and the j
+// axis in `splits` parts of `span` rows (a multiple of SJ, at most MAX_SPAN).
+// The parts fill SLOTS with one tile a block where that is enough; where the
+// grid would outgrow SLOTS, each block takes several tiles instead, so their
+// S_B sums add up in shared memory and fewer partials reach device memory.
 struct Plan {
-  int kt, tiles, splits, span;
+  int kt, tiles, per, groups, splits, span;
 };
 
-Plan plan(int nx, int ny, int k) {
+Plan plan(int n1, int n2, int k) {
   Plan p;
   p.kt = (k + BK - 1) / BK;
-  p.tiles = (nx + TI - 1) / TI;
+  p.tiles = (n1 + TI - 1) / TI;
   const long long base = (long long)p.kt * p.tiles;
-  const int stages = (ny + SJ - 1) / SJ;
-  const int want = (int)std::max(1LL, std::min((long long)stages,
-                                               (TARGET_BLOCKS + base - 1) / base));
-  p.span = (stages + want - 1) / want * SJ;
-  p.splits = (ny + p.span - 1) / p.span;
+  const int stages = (n2 + SJ - 1) / SJ;
+  const int want = (int)std::max(1LL, std::min((long long)stages, (SLOTS + base - 1) / base));
+  p.span = std::min((stages + want - 1) / want, MAX_SPAN / SJ) * SJ;
+  p.splits = (n2 + p.span - 1) / p.span;
+  const int fit = std::max(1, SLOTS / (p.kt * p.splits));  // groups that fill SLOTS
+  p.per = (p.tiles + fit - 1) / fit;
+  p.groups = (p.tiles + p.per - 1) / p.per;
   return p;
 }
 
-// Block (column tile, kept-row tile `it`, reduced-axis part `s`). x holds the
-// kept rows (nx, k), y the reduced-axis rows (ny, k); g[i, j] of kept row i and
-// reduced row j sits at g[i * g_rs + j * g_cs]. Writes
-//   part_x[s, i, k]  = sum over the part's j of g * 1[x_ik + y_jk > 0]
-//   part_y[it, j, k] = sum over the tile's i of the same     (FUSED only)
-//   dw_part[it * splits + s, k] = sum_i x * part_x + sum_j y * part_y
-//   g_part[it * splits + s]     = sum of the block's g tile  (column tile 0)
-template <bool FUSED>
-__global__ void __launch_bounds__(WJ * 32)
-pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ g, int g_rs, int g_cs,
-                    float* __restrict__ part_x, float* __restrict__ part_y,
-                    float* __restrict__ dw_part, float* __restrict__ g_part,
-                    int nx, int ny, int k, int splits, int span) {
-  __shared__ __align__(16) float gs[TI][GS];
-  __shared__ float ys[SJ][BK];
-  __shared__ float red[WJ][TI][BK];
-  __shared__ float gsum_s[WJ * 32];
+// 1.0f where a > b, else 0.0f. a + b > 0 exactly where a > -b (rounding never
+// changes the sign of a sum, and a sum rounds to +0 only where it is 0), so
+// step_gt(a, -b) is the mask 1[a + b > 0] without the add; and as a float it
+// needs no predicate register (predicated adds waited on the two predicates
+// the compiler rotated).
+__device__ __forceinline__ float step_gt(float a, float b) {
+  float r;
+  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// 4-byte asynchronous copy from device to shared memory; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Block (column tile kt, group ig of `per` i tiles, j part s). Writes
+//   part_a[s, i, k]  = sum over the part's j of g * 1[a_ik + b_jk > 0]
+//   part_b[ig, j, k] = sum over the group's i of the same
+//   dw_part[ig * splits + s, k] = sum_i a * part_a + sum_j b * part_b
+//   g_part[ig * splits + s]     = sum of the block's g tiles (column tile 0)
+__global__ void __launch_bounds__(NT)
+pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ g, float* __restrict__ part_a,
+                    float* __restrict__ part_b, float* __restrict__ dw_part,
+                    float* __restrict__ g_part, int n1, int n2, int k, int splits,
+                    int span, int per) {
+  // two stages, double-buffered; the buffer that sums S_A over the warps; the
+  // block's S_B sums of its span
+  extern __shared__ __align__(16) float smem[];
+  float* red = smem + 2 * STAGE;
+  float* sb = red + RED;
+  __shared__ float gsum_s[NT];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int kt = blockIdx.x, it = blockIdx.y, s = blockIdx.z;
-  const int kk = kt * BK + lane;
-  const bool kin = kk < k;
-  const int i0 = it * TI;
-  const int jb = s * span, je = min(ny, jb + span);
+  const int kt = blockIdx.x, ig = blockIdx.y, s = blockIdx.z;
+  const int k0 = kt * BK;
+  const bool kin[2] = {k0 + lane < k, k0 + 32 + lane < k};
+  const int t_end = min(per, (n1 + TI - 1) / TI - ig * per);
+  int i0 = ig * per * TI;
+  const int jb = s * span, je = min(n2, jb + span);
+  const bool sum_g = kt == 0;
 
-  float xv[TI], sx[TI];
-#pragma unroll
-  for (int r = 0; r < TI; ++r) {
-    xv[r] = (kin && i0 + r < nx) ? x[(size_t)(i0 + r) * k + kk] : 0.f;
-    sx[r] = 0.f;
-  }
-  float dw = 0.f, gsum = 0.f;
+  // copies the g tile (TI x SJ) and the b tile (SJ x BK) of rows j0.. into
+  // stage `buf`, zero past the edges
+  auto stage = [&](int buf, int j0) {
+    float* gs = smem + buf * STAGE;
+    float* bs = gs + TI * GS;
+    for (int e = tid; e < TI * SJ; e += NT) {
+      const int r = e / SJ, c = e % SJ;
+      const bool in = i0 + r < n1 && j0 + c < je;
+      cp_async4(gs + r * GS + c, in ? g + (size_t)(i0 + r) * n2 + j0 + c : g, in);
+    }
+    for (int e = tid; e < SJ * BK; e += NT) {
+      const int c = e / BK, col = k0 + e % BK;
+      const bool in = j0 + c < je && col < k;
+      cp_async4(bs + e, in ? b + (size_t)(j0 + c) * k + col : b, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-  for (int j0 = jb; j0 < je; j0 += SJ) {
-    // g tile (TI x SJ) and y tile (SJ x BK), zero past the edges; neighbouring
-    // threads read neighbouring addresses of g whichever way it is laid out
-    for (int e = tid; e < TI * SJ; e += WJ * 32) {
-      const int r = g_cs == 1 ? e / SJ : e % TI;
-      const int c = g_cs == 1 ? e % SJ : e / TI;
-      const float v = (i0 + r < nx && j0 + c < je)
-                          ? g[(size_t)(i0 + r) * g_rs + (size_t)(j0 + c) * g_cs] : 0.f;
-      gs[r][c] = v;
-      gsum += v;
-    }
-    for (int e = tid; e < SJ * BK; e += WJ * 32) {
-      const int c = e / BK, col = kt * BK + e % BK;
-      ys[c][e % BK] = (j0 + c < je && col < k) ? y[(size_t)(j0 + c) * k + col] : 0.f;
-    }
-    __syncthreads();
+  float av[2][TI], sa[2][TI];
+  float dw[2] = {0.f, 0.f}, gsum = 0.f;
+  stage(0, jb);
+  for (int t = 0; t < t_end; ++t, i0 += TI) {
 #pragma unroll
-    for (int u = 0; u < SJ / (WJ * RJ); ++u) {
-      const int c = (u * WJ + w) * RJ;
-      float yv[RJ], sy[RJ];
-#pragma unroll
-      for (int q = 0; q < RJ; ++q) {
-        yv[q] = ys[c + q][lane];
-        sy[q] = 0.f;
-      }
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int r = 0; r < TI; ++r) {
-        const float4 gv = *reinterpret_cast<const float4*>(&gs[r][c]);
-        const float gq[RJ] = {gv.x, gv.y, gv.z, gv.w};
+        av[h][r] = (kin[h] && i0 + r < n1) ? a[(size_t)(i0 + r) * k + k0 + 32 * h + lane] : 0.f;
+        sa[h][r] = 0.f;
+      }
+    }
+    for (int j0 = jb, buf = 0; j0 < je; j0 += SJ, buf ^= 1) {
+      if (j0 + SJ < je) {
+        stage(buf ^ 1, j0 + SJ);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();
+      const float* gs = smem + buf * STAGE;
+      const float* bs = gs + TI * GS;
+      if (sum_g) {
+        for (int e = tid; e < TI * SJ; e += NT) gsum += gs[(e / SJ) * GS + e % SJ];
+      }
+#pragma unroll
+      for (int u = 0; u < SJ / (WJ * RJ); ++u) {
+        const int c = (u * WJ + w) * RJ;
+        float bn[2][RJ], sbq[2][RJ];  // -b, and the S_B sums over the tile's rows
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int q = 0; q < RJ; ++q) {
+            bn[h][q] = -bs[(c + q) * BK + 32 * h + lane];
+            sbq[h][q] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < TI; ++r) {
+          const float4 gv = *reinterpret_cast<const float4*>(gs + r * GS + c);
+          const float gq[RJ] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int q = 0; q < RJ; ++q) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              // m * g + sum is sum + g or sum, rounded once: the same as an add
+              const float m = step_gt(av[h][r], bn[h][q]);
+              sa[h][r] = fmaf(m, gq[q], sa[h][r]);
+              sbq[h][q] = fmaf(m, gq[q], sbq[h][q]);
+            }
+          }
+        }
 #pragma unroll
         for (int q = 0; q < RJ; ++q) {
-          if (xv[r] + yv[q] > 0.f) {
-            sx[r] += gq[q];
-            if (FUSED) sy[q] += gq[q];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* dst = sb + (j0 - jb + c + q) * BK + 32 * h + lane;  // this thread's own
+            *dst = t == 0 ? sbq[h][q] : *dst + sbq[h][q];
+            dw[h] = fmaf(-bn[h][q], sbq[h][q], dw[h]);
           }
         }
       }
-      if (FUSED) {
-#pragma unroll
-        for (int q = 0; q < RJ; ++q) {
-          const int j = j0 + c + q;
-          if (kin && j < je) part_y[((size_t)it * ny + j) * k + kk] = sy[q];
-          dw = fmaf(yv[q], sy[q], dw);
-        }
-      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
+    if (t + 1 < t_end) {  // the next tile's first stage, while this one sums S_A
+      i0 += TI;
+      stage(0, jb);
+      i0 -= TI;
+    }
 
-  // S_A of the part: the four warps' sums of each (row, column), in warp order
+    // a * S_A by linearity: each warp adds a times its own partial sums
 #pragma unroll
-  for (int r = 0; r < TI; ++r) red[w][r][lane] = sx[r];
-  __syncthreads();
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-  for (int m = 0; m < TI / WJ; ++m) {
-    const int r = m * WJ + w, i = i0 + r;
-    float sum = 0.f;
+      for (int r = 0; r < TI; ++r) dw[h] = fmaf(av[h][r], sa[h][r], dw[h]);
+    }
+    // S_A of the part: the warps' sums of each (row, column) in warp order,
+    // one half of the columns at a time
 #pragma unroll
-    for (int v = 0; v < WJ; ++v) sum += red[v][r][lane];
-    if (kin && i < nx) {
-      part_x[((size_t)s * nx + i) * k + kk] = sum;
-      dw = fmaf(x[(size_t)i * k + kk], sum, dw);
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < TI; ++r) red[(w * TI + r) * 32 + lane] = sa[h][r];
+      __syncthreads();
+      const int col = k0 + 32 * h + lane;
+#pragma unroll
+      for (int m = 0; m < TI / WJ; ++m) {
+        const int r = m * WJ + w, i = i0 + r;
+        float sum = 0.f;
+#pragma unroll
+        for (int v = 0; v < WJ; ++v) sum += red[(v * TI + r) * 32 + lane];
+        if (kin[h] && i < n1) part_a[((size_t)s * n1 + i) * k + col] = sum;
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
-  red[w][0][lane] = dw;
+  // S_B of the group's tiles, one row of BK columns at a time
+  const int rows = je - jb;
+  for (int e = tid; e < rows * BK; e += NT) {
+    const int col = k0 + e % BK;
+    if (col < k) part_b[((size_t)ig * n2 + jb + e / BK) * k + col] = sb[e];
+  }
+  red[w * BK + lane] = dw[0];
+  red[w * BK + 32 + lane] = dw[1];
   gsum_s[tid] = gsum;
   __syncthreads();
-  const int blk = it * splits + s;
-  if (w == 0 && kin) {
+  const int blk = ig * splits + s;
+  if (w < 2 && k0 + tid < k) {
     float sum = 0.f;
 #pragma unroll
-    for (int v = 0; v < WJ; ++v) sum += red[v][0][lane];
-    dw_part[(size_t)blk * k + kk] = sum;
+    for (int v = 0; v < WJ; ++v) sum += red[v * BK + tid];
+    dw_part[(size_t)blk * k + k0 + tid] = sum;
   }
-  if (g_part == nullptr || kt != 0) return;
-  for (int h = WJ * 16; h > 0; h >>= 1) {
-    if (tid < h) gsum_s[tid] += gsum_s[tid + h];
-    __syncthreads();
+  if (sum_g) {
+    for (int h = NT / 2; h > 0; h >>= 1) {
+      if (tid < h) gsum_s[tid] += gsum_s[tid + h];
+      __syncthreads();
+    }
+    if (tid == 0) g_part[blk] = gsum_s[0];
   }
-  if (tid == 0) g_part[blk] = gsum_s[0];
+
 }
 
-// Threads [0, (nx + ny) * k): dx = w2 * (sum of x_parts partials), then dy
-// likewise, partials in order. The last blocks: dw2[k] = sum of dw_parts
-// partials, and thread 0 of them db2 = sum of g_parts partials.
+// Threads [0, (n1 + n2) * k): dA = w2 * (sum of the a_parts partials), then dB
+// likewise, partials in order. The last blocks: dw2[k] = sum of the dw_parts
+// partials, and thread 0 of them db2 = sum of the g_parts partials.
 __global__ void __launch_bounds__(FIN)
-pairwise_finish_kernel(const float* __restrict__ px, int x_parts, int nx,
-                       float* __restrict__ dx, const float* __restrict__ py,
-                       int y_parts, int ny, float* __restrict__ dy,
-                       const float* __restrict__ w2, const float* __restrict__ dw_part,
-                       int dw_parts, float* __restrict__ dw2,
-                       const float* __restrict__ g_part, int g_parts,
+pairwise_finish_kernel(const float* __restrict__ pa, int a_parts, int n1,
+                       float* __restrict__ da, const float* __restrict__ pb, int b_parts,
+                       int n2, float* __restrict__ db, const float* __restrict__ w2,
+                       const float* __restrict__ dw_part, int dw_parts,
+                       float* __restrict__ dw2, const float* __restrict__ g_part,
                        float* __restrict__ db2, int k, int elem_blocks) {
   if ((int)blockIdx.x < elem_blocks) {
-    const size_t nxk = (size_t)nx * k, nyk = (size_t)ny * k;
+    const size_t nak = (size_t)n1 * k, nbk = (size_t)n2 * k;
     size_t e = (size_t)blockIdx.x * FIN + threadIdx.x;
-    const float* p = px;
-    float* out = dx;
-    int parts = x_parts;
-    size_t stride = nxk;
-    if (e >= nxk) {
-      e -= nxk;
-      if (e >= nyk) return;
-      p = py, out = dy, parts = y_parts, stride = nyk;
+    const float* p = pa;
+    float* out = da;
+    int parts = a_parts;
+    size_t stride = nak;
+    if (e >= nak) {
+      e -= nak;
+      if (e >= nbk) return;
+      p = pb, out = db, parts = b_parts, stride = nbk;
     }
     float sum = 0.f;
     for (int q = 0; q < parts; ++q) sum += p[q * stride + e];
@@ -270,22 +348,9 @@ pairwise_finish_kernel(const float* __restrict__ px, int x_parts, int nx,
   }
   if (col == 0) {
     float sum = 0.f;
-    for (int q = 0; q < g_parts; ++q) sum += g_part[q];
+    for (int q = 0; q < dw_parts; ++q) sum += g_part[q];
     db2[0] = sum;
   }
-}
-
-cudaError_t finish(const float* px, int x_parts, int nx, float* dx, const float* py,
-                   int y_parts, int ny, float* dy, const float* w2, const float* dw_part,
-                   int dw_parts, float* dw2, const float* g_part, int g_parts, float* db2,
-                   int k, cudaStream_t s) {
-  const long long elems = (long long)(nx + ny) * k;
-  const int elem_blocks = (int)((elems + FIN - 1) / FIN);
-  const int blocks = elem_blocks + (k + FIN - 1) / FIN;
-  pairwise_finish_kernel<<<blocks, FIN, 0, s>>>(px, x_parts, nx, dx, py, y_parts, ny, dy, w2,
-                                                dw_part, dw_parts, dw2, g_part, g_parts, db2,
-                                                k, elem_blocks);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -301,14 +366,12 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-#ifndef PAIRWISE_TWO_PASS
-
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
 // the S_B partials of each i tile, and each block's dw2 and db2 partials.
 long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
   const Plan p = plan(n1, n2, k);
-  const long long blocks = (long long)p.tiles * p.splits;
-  return ((long long)p.splits * n1 + (long long)p.tiles * n2 + blocks) * k + blocks;
+  const long long blocks = (long long)p.groups * p.splits;
+  return ((long long)p.splits * n1 + (long long)p.groups * n2 + blocks) * k + blocks;
 }
 
 // dA (n1, k), dB (n2, k), dw2 (k) and db2 (1) from a (n1, k), b (n2, k),
@@ -319,52 +382,34 @@ int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const floa
                      int n1, int n2, int k, void* stream) {
   if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool configured[MAX_DEVICES] = {};  // more shared memory than the default 48 KB
+  if (dev >= MAX_DEVICES || !configured[dev]) {
+    err = cudaFuncSetAttribute(pairwise_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) configured[dev] = true;
+  }
   const Plan p = plan(n1, n2, k);
   float* part_a = scratch;
   float* part_b = part_a + (size_t)p.splits * n1 * k;
-  float* dw_part = part_b + (size_t)p.tiles * n2 * k;
-  float* g_part = dw_part + (size_t)p.tiles * p.splits * k;
-  pairwise_bwd_kernel<true><<<dim3(p.kt, p.tiles, p.splits), WJ * 32, 0, s>>>(
-      a, b, g, n2, 1, part_a, part_b, dw_part, g_part, n1, n2, k, p.splits, p.span);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(part_a, p.splits, n1, da, part_b, p.tiles, n2, db, w2,
-                                 dw_part, p.tiles * p.splits, dw2, g_part,
-                                 p.tiles * p.splits, db2, k, s));
-}
+  float* dw_part = part_b + (size_t)p.groups * n2 * k;
+  float* g_part = dw_part + (size_t)p.groups * p.splits * k;
 
-#else  // two passes: S_A with i kept and j reduced, then S_B with j kept and i reduced
-
-long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
-  const Plan pa = plan(n1, n2, k), pb = plan(n2, n1, k);
-  const long long ba = (long long)pa.tiles * pa.splits, bb = (long long)pb.tiles * pb.splits;
-  return ((long long)pa.splits * n1 + (long long)pb.splits * n2 + ba + bb) * k + ba;
-}
-
-int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const float* g,
-                     float* da, float* db, float* dw2, float* db2, float* scratch,
-                     int n1, int n2, int k, void* stream) {
-  if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan pa = plan(n1, n2, k), pb = plan(n2, n1, k);
-  const int ba = pa.tiles * pa.splits, bb = pb.tiles * pb.splits;
-  float* part_a = scratch;
-  float* part_b = part_a + (size_t)pa.splits * n1 * k;
-  float* dw_part = part_b + (size_t)pb.splits * n2 * k;
-  float* g_part = dw_part + (size_t)(ba + bb) * k;
-  pairwise_bwd_kernel<false><<<dim3(pa.kt, pa.tiles, pa.splits), WJ * 32, 0, s>>>(
-      a, b, g, n2, 1, part_a, nullptr, dw_part, g_part, n1, n2, k, pa.splits, pa.span);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pairwise_bwd_kernel<false><<<dim3(pb.kt, pb.tiles, pb.splits), WJ * 32, 0, s>>>(
-      b, a, g, 1, n2, part_b, nullptr, dw_part + (size_t)ba * k, nullptr, n2, n1, k,
-      pb.splits, pb.span);
+  const size_t smem = (2 * STAGE + RED + p.span * BK) * sizeof(float);
+  pairwise_bwd_kernel<<<dim3(p.kt, p.groups, p.splits), NT, smem, s>>>(
+      a, b, g, part_a, part_b, dw_part, g_part, n1, n2, k, p.splits, p.span, p.per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(part_a, pa.splits, n1, da, part_b, pb.splits, n2, db, w2,
-                                 dw_part, ba + bb, dw2, g_part, ba, db2, k, s));
-}
 
-#endif
+  const long long elems = (long long)(n1 + n2) * k;
+  const int elem_blocks = (int)((elems + FIN - 1) / FIN);
+  pairwise_finish_kernel<<<elem_blocks + (k + FIN - 1) / FIN, FIN, 0, s>>>(
+      part_a, p.splits, n1, da, part_b, p.groups, n2, db, w2, dw_part, p.groups * p.splits,
+      dw2, g_part, db2, k, elem_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // extern "C"
