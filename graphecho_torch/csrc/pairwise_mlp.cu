@@ -51,7 +51,11 @@
 
 #include <cuda_runtime.h>
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -97,35 +101,37 @@ constexpr int RJ = 4;            // backward: j rows a warp takes at once (one f
 constexpr int SJ = 2 * WJ * RJ;  // backward: j rows staged in shared memory at once
 constexpr int GS = SJ + 4;       // row stride of the staged g tile (keeps float4 reads aligned)
 constexpr int STAGE = TI * GS + SJ * BK;  // floats of one stage: the g tile, then the b tile
-constexpr int RED = WJ * TI * 32;  // floats of the buffer that sums S_A over the warps
-constexpr int MAX_SPAN = 4 * SJ;   // most j rows of one block
-constexpr int SMEM_BYTES = (2 * STAGE + RED + MAX_SPAN * BK) * 4;
-constexpr int SLOTS = 2 * 132;  // blocks an H100 holds at once at this kernel's registers
+constexpr int MAX_SPAN = 4 * SJ;  // most j rows of one block, whose S_B stays in shared memory
+constexpr int SMEM_BYTES = (2 * STAGE + MAX_SPAN * BK) * 4;
+constexpr int MAX_CLUSTER = 8;   // blocks of a cluster: the portable limit
+constexpr int TARGET_BLOCKS = 4 * 132;  // about four blocks for each SM of an H100
 constexpr int FIN = 256;  // threads per block of the finishing pass
 constexpr int MAX_DEVICES = 64;
 
-// How the backward cuts its work: `kt` column tiles of BK; `tiles` tiles of TI
-// rows of i, taken `per` at a time by a block (`groups` of them); and the j
-// axis in `splits` parts of `span` rows (a multiple of SJ, at most MAX_SPAN).
-// The parts fill SLOTS with one tile a block where that is enough; where the
-// grid would outgrow SLOTS, each block takes several tiles instead, so their
-// S_B sums add up in shared memory and fewer partials reach device memory.
+// How the backward cuts its work: `kt` column tiles of BK, `tiles` tiles of TI
+// rows of i in clusters of `cluster` (the largest divisor of `tiles` up to
+// MAX_CLUSTER; `groups` of them), and the j axis in `splits` parts of `span`
+// rows (a multiple of SJ, at most MAX_SPAN), as many parts as bring the grid
+// near TARGET_BLOCKS.
 struct Plan {
-  int kt, tiles, per, groups, splits, span;
+  int kt, tiles, cluster, groups, splits, span;
 };
 
 Plan plan(int n1, int n2, int k) {
   Plan p;
   p.kt = (k + BK - 1) / BK;
   p.tiles = (n1 + TI - 1) / TI;
+  p.cluster = 1;
+  for (int c = 2; c <= MAX_CLUSTER; ++c) {
+    if (p.tiles % c == 0) p.cluster = c;
+  }
+  p.groups = p.tiles / p.cluster;
   const long long base = (long long)p.kt * p.tiles;
   const int stages = (n2 + SJ - 1) / SJ;
-  const int want = (int)std::max(1LL, std::min((long long)stages, (SLOTS + base - 1) / base));
+  const int want = (int)std::max(1LL, std::min((long long)stages,
+                                               (TARGET_BLOCKS + base - 1) / base));
   p.span = std::min((stages + want - 1) / want, MAX_SPAN / SJ) * SJ;
   p.splits = (n2 + p.span - 1) / p.span;
-  const int fit = std::max(1, SLOTS / (p.kt * p.splits));  // groups that fill SLOTS
-  p.per = (p.tiles + fit - 1) / fit;
-  p.groups = (p.tiles + p.per - 1) / p.per;
   return p;
 }
 
@@ -147,29 +153,29 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                "r"(valid ? 4 : 0));
 }
 
-// Block (column tile kt, group ig of `per` i tiles, j part s). Writes
-//   part_a[s, i, k]  = sum over the part's j of g * 1[a_ik + b_jk > 0]
-//   part_b[ig, j, k] = sum over the group's i of the same
-//   dw_part[ig * splits + s, k] = sum_i a * part_a + sum_j b * part_b
-//   g_part[ig * splits + s]     = sum of the block's g tiles (column tile 0)
+// Block (column tile kt, i tile it, j part s), in a cluster of the i tiles
+// [cluster * (it / cluster), +cluster). Writes
+//   part_a[s, i, k]     = sum over the part's j of g * 1[a_ik + b_jk > 0]
+//   part_b[group, j, k] = sum over the group's i of the same (the cluster's
+//                         blocks add their sums in rank order)
+//   dw_part[it * splits + s, k] = sum_i a * part_a + sum_j b * (the block's S_B)
+//   g_part[it * splits + s]     = sum of the block's g tile (column tile 0)
 __global__ void __launch_bounds__(NT)
 pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ g, float* __restrict__ part_a,
                     float* __restrict__ part_b, float* __restrict__ dw_part,
                     float* __restrict__ g_part, int n1, int n2, int k, int splits,
-                    int span, int per) {
-  // two stages, double-buffered; the buffer that sums S_A over the warps; the
-  // block's S_B sums of its span
+                    int span) {
+  // two stages, double-buffered (after the loop the same memory holds `red`),
+  // then the block's S_B for its span
   extern __shared__ __align__(16) float smem[];
-  float* red = smem + 2 * STAGE;
-  float* sb = red + RED;
+  float* sb = smem + 2 * STAGE;
   __shared__ float gsum_s[NT];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int kt = blockIdx.x, ig = blockIdx.y, s = blockIdx.z;
+  const int kt = blockIdx.x, it = blockIdx.y, s = blockIdx.z;
   const int k0 = kt * BK;
   const bool kin[2] = {k0 + lane < k, k0 + 32 + lane < k};
-  const int t_end = min(per, (n1 + TI - 1) / TI - ig * per);
-  int i0 = ig * per * TI;
+  const int i0 = it * TI;
   const int jb = s * span, je = min(n2, jb + span);
   const bool sum_g = kt == 0;
 
@@ -192,111 +198,99 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   };
 
   float av[2][TI], sa[2][TI];
-  float dw[2] = {0.f, 0.f}, gsum = 0.f;
-  stage(0, jb);
-  for (int t = 0; t < t_end; ++t, i0 += TI) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < TI; ++r) {
+      av[h][r] = (kin[h] && i0 + r < n1) ? a[(size_t)(i0 + r) * k + k0 + 32 * h + lane] : 0.f;
+      sa[h][r] = 0.f;
+    }
+  }
+  float dw[2] = {0.f, 0.f}, gsum = 0.f;
+
+  stage(0, jb);
+  for (int j0 = jb, buf = 0; j0 < je; j0 += SJ, buf ^= 1) {
+    if (j0 + SJ < je) {
+      stage(buf ^ 1, j0 + SJ);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const float* gs = smem + buf * STAGE;
+    const float* bs = gs + TI * GS;
+    if (sum_g) {
+      for (int e = tid; e < TI * SJ; e += NT) gsum += gs[(e / SJ) * GS + e % SJ];
+    }
+#pragma unroll
+    for (int u = 0; u < SJ / (WJ * RJ); ++u) {
+      const int c = (u * WJ + w) * RJ;
+      float bn[2][RJ], sbq[2][RJ];  // -b, and the S_B sums over the block's rows
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < RJ; ++q) {
+          bn[h][q] = -bs[(c + q) * BK + 32 * h + lane];
+          sbq[h][q] = 0.f;
+        }
+      }
 #pragma unroll
       for (int r = 0; r < TI; ++r) {
-        av[h][r] = (kin[h] && i0 + r < n1) ? a[(size_t)(i0 + r) * k + k0 + 32 * h + lane] : 0.f;
-        sa[h][r] = 0.f;
-      }
-    }
-    for (int j0 = jb, buf = 0; j0 < je; j0 += SJ, buf ^= 1) {
-      if (j0 + SJ < je) {
-        stage(buf ^ 1, j0 + SJ);
-        asm volatile("cp.async.wait_group 1;\n" ::);
-      } else {
-        asm volatile("cp.async.wait_group 0;\n" ::);
-      }
-      __syncthreads();
-      const float* gs = smem + buf * STAGE;
-      const float* bs = gs + TI * GS;
-      if (sum_g) {
-        for (int e = tid; e < TI * SJ; e += NT) gsum += gs[(e / SJ) * GS + e % SJ];
-      }
-#pragma unroll
-      for (int u = 0; u < SJ / (WJ * RJ); ++u) {
-        const int c = (u * WJ + w) * RJ;
-        float bn[2][RJ], sbq[2][RJ];  // -b, and the S_B sums over the tile's rows
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int q = 0; q < RJ; ++q) {
-            bn[h][q] = -bs[(c + q) * BK + 32 * h + lane];
-            sbq[h][q] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < TI; ++r) {
-          const float4 gv = *reinterpret_cast<const float4*>(gs + r * GS + c);
-          const float gq[RJ] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-          for (int q = 0; q < RJ; ++q) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              // m * g + sum is sum + g or sum, rounded once: the same as an add
-              const float m = step_gt(av[h][r], bn[h][q]);
-              sa[h][r] = fmaf(m, gq[q], sa[h][r]);
-              sbq[h][q] = fmaf(m, gq[q], sbq[h][q]);
-            }
-          }
-        }
+        const float4 gv = *reinterpret_cast<const float4*>(gs + r * GS + c);
+        const float gq[RJ] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
         for (int q = 0; q < RJ; ++q) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float* dst = sb + (j0 - jb + c + q) * BK + 32 * h + lane;  // this thread's own
-            *dst = t == 0 ? sbq[h][q] : *dst + sbq[h][q];
-            dw[h] = fmaf(-bn[h][q], sbq[h][q], dw[h]);
+            // m * g + sum is sum + g or sum, rounded once: the same as an add
+            const float m = step_gt(av[h][r], bn[h][q]);
+            sa[h][r] = fmaf(m, gq[q], sa[h][r]);
+            sbq[h][q] = fmaf(m, gq[q], sbq[h][q]);
           }
         }
       }
-      __syncthreads();
-    }
-    if (t + 1 < t_end) {  // the next tile's first stage, while this one sums S_A
-      i0 += TI;
-      stage(0, jb);
-      i0 -= TI;
-    }
-
-    // a * S_A by linearity: each warp adds a times its own partial sums
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+      for (int q = 0; q < RJ; ++q) {
 #pragma unroll
-      for (int r = 0; r < TI; ++r) dw[h] = fmaf(av[h][r], sa[h][r], dw[h]);
-    }
-    // S_A of the part: the warps' sums of each (row, column) in warp order,
-    // one half of the columns at a time
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int r = 0; r < TI; ++r) red[(w * TI + r) * 32 + lane] = sa[h][r];
-      __syncthreads();
-      const int col = k0 + 32 * h + lane;
-#pragma unroll
-      for (int m = 0; m < TI / WJ; ++m) {
-        const int r = m * WJ + w, i = i0 + r;
-        float sum = 0.f;
-#pragma unroll
-        for (int v = 0; v < WJ; ++v) sum += red[(v * TI + r) * 32 + lane];
-        if (kin[h] && i < n1) part_a[((size_t)s * n1 + i) * k + col] = sum;
+        for (int h = 0; h < 2; ++h) {
+          sb[(j0 - jb + c + q) * BK + 32 * h + lane] = sbq[h][q];
+          dw[h] = fmaf(-bn[h][q], sbq[h][q], dw[h]);
+        }
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
-  // S_B of the group's tiles, one row of BK columns at a time
-  const int rows = je - jb;
-  for (int e = tid; e < rows * BK; e += NT) {
-    const int col = k0 + e % BK;
-    if (col < k) part_b[((size_t)ig * n2 + jb + e / BK) * k + col] = sb[e];
+
+  // a * S_A by linearity: each warp adds a times its own partial sums
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < TI; ++r) dw[h] = fmaf(av[h][r], sa[h][r], dw[h]);
+  }
+  // S_A of the part: the warps' sums of each (row, column) in warp order, one
+  // half of the columns at a time through red[WJ][TI][32]
+  float* red = smem;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < TI; ++r) red[(w * TI + r) * 32 + lane] = sa[h][r];
+    __syncthreads();
+    const int col = k0 + 32 * h + lane;
+#pragma unroll
+    for (int m = 0; m < TI / WJ; ++m) {
+      const int r = m * WJ + w, i = i0 + r;
+      float sum = 0.f;
+#pragma unroll
+      for (int v = 0; v < WJ; ++v) sum += red[(v * TI + r) * 32 + lane];
+      if (kin[h] && i < n1) part_a[((size_t)s * n1 + i) * k + col] = sum;
+    }
+    __syncthreads();
   }
   red[w * BK + lane] = dw[0];
   red[w * BK + 32 + lane] = dw[1];
   gsum_s[tid] = gsum;
   __syncthreads();
-  const int blk = ig * splits + s;
+  const int blk = it * splits + s;
   if (w < 2 && k0 + tid < k) {
     float sum = 0.f;
 #pragma unroll
@@ -311,6 +305,19 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     if (tid == 0) g_part[blk] = gsum_s[0];
   }
 
+  // S_B of the group: every block of the cluster adds, for its share of the
+  // span's (row, column) entries, the cluster's S_B in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int nc = cluster.dim_blocks().y, rank = cluster.block_rank();
+  const int group = it / nc, rows = je - jb;
+  for (int e = rank * NT + tid; e < rows * BK; e += nc * NT) {
+    float sum = 0.f;
+    for (int q = 0; q < nc; ++q) sum += cluster.map_shared_rank(sb, q)[e];
+    const int col = k0 + e % BK;
+    if (col < k) part_b[((size_t)group * n2 + jb + e / BK) * k + col] = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // Threads [0, (n1 + n2) * k): dA = w2 * (sum of the a_parts partials), then dB
@@ -367,10 +374,11 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, float* out
 }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
-// the S_B partials of each i tile, and each block's dw2 and db2 partials.
+// the S_B partials of each cluster of i tiles, and each block's dw2 and db2
+// partials.
 long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
   const Plan p = plan(n1, n2, k);
-  const long long blocks = (long long)p.groups * p.splits;
+  const long long blocks = (long long)p.tiles * p.splits;
   return ((long long)p.splits * n1 + (long long)p.groups * n2 + blocks) * k + blocks;
 }
 
@@ -396,18 +404,30 @@ int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const floa
   float* part_a = scratch;
   float* part_b = part_a + (size_t)p.splits * n1 * k;
   float* dw_part = part_b + (size_t)p.groups * n2 * k;
-  float* g_part = dw_part + (size_t)p.groups * p.splits * k;
+  float* g_part = dw_part + (size_t)p.tiles * p.splits * k;
 
-  const size_t smem = (2 * STAGE + RED + p.span * BK) * sizeof(float);
-  pairwise_bwd_kernel<<<dim3(p.kt, p.groups, p.splits), NT, smem, s>>>(
-      a, b, g, part_a, part_b, dw_part, g_part, n1, n2, k, p.splits, p.span, p.per);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.kt, p.tiles, p.splits);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = (2 * STAGE + p.span * BK) * sizeof(float);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pairwise_bwd_kernel, a, b, g, part_a, part_b, dw_part,
+                           g_part, n1, n2, k, p.splits, p.span);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long elems = (long long)(n1 + n2) * k;
   const int elem_blocks = (int)((elems + FIN - 1) / FIN);
   pairwise_finish_kernel<<<elem_blocks + (k + FIN - 1) / FIN, FIN, 0, s>>>(
-      part_a, p.splits, n1, da, part_b, p.groups, n2, db, w2, dw_part, p.groups * p.splits,
+      part_a, p.splits, n1, da, part_b, p.groups, n2, db, w2, dw_part, p.tiles * p.splits,
       dw2, g_part, db2, k, elem_blocks);
   return static_cast<int>(cudaGetLastError());
 }
