@@ -51,11 +51,7 @@
 
 #include <cuda_runtime.h>
 
-#include <cooperative_groups.h>
-
 #include <algorithm>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -101,36 +97,25 @@ constexpr int RJ = 4;            // backward: j rows a warp takes at once (one f
 constexpr int SJ = 2 * WJ * RJ;  // backward: j rows staged in shared memory at once
 constexpr int GS = SJ + 4;       // row stride of the staged g tile (keeps float4 reads aligned)
 constexpr int STAGE = TI * GS + SJ * BK;  // floats of one stage: the g tile, then the b tile
-constexpr int MAX_SPAN = 4 * SJ;  // most j rows of one block, whose S_B stays in shared memory
-constexpr int SMEM_BYTES = (2 * STAGE + MAX_SPAN * BK) * 4;
-constexpr int MAX_CLUSTER = 8;   // blocks of a cluster: the portable limit
 constexpr int TARGET_BLOCKS = 4 * 132;  // about four blocks for each SM of an H100
 constexpr int FIN = 256;  // threads per block of the finishing pass
-constexpr int MAX_DEVICES = 64;
 
 // How the backward cuts its work: `kt` column tiles of BK, `tiles` tiles of TI
-// rows of i in clusters of `cluster` (the largest divisor of `tiles` up to
-// MAX_CLUSTER; `groups` of them), and the j axis in `splits` parts of `span`
-// rows (a multiple of SJ, at most MAX_SPAN), as many parts as bring the grid
-// near TARGET_BLOCKS.
+// rows of i, and the j axis in `splits` parts of `span` rows (a multiple of
+// SJ), as many parts as bring the grid near TARGET_BLOCKS.
 struct Plan {
-  int kt, tiles, cluster, groups, splits, span;
+  int kt, tiles, splits, span;
 };
 
 Plan plan(int n1, int n2, int k) {
   Plan p;
   p.kt = (k + BK - 1) / BK;
   p.tiles = (n1 + TI - 1) / TI;
-  p.cluster = 1;
-  for (int c = 2; c <= MAX_CLUSTER; ++c) {
-    if (p.tiles % c == 0) p.cluster = c;
-  }
-  p.groups = p.tiles / p.cluster;
   const long long base = (long long)p.kt * p.tiles;
   const int stages = (n2 + SJ - 1) / SJ;
   const int want = (int)std::max(1LL, std::min((long long)stages,
                                                (TARGET_BLOCKS + base - 1) / base));
-  p.span = std::min((stages + want - 1) / want, MAX_SPAN / SJ) * SJ;
+  p.span = (stages + want - 1) / want * SJ;
   p.splits = (n2 + p.span - 1) / p.span;
   return p;
 }
@@ -153,12 +138,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                "r"(valid ? 4 : 0));
 }
 
-// Block (column tile kt, i tile it, j part s), in a cluster of the i tiles
-// [cluster * (it / cluster), +cluster). Writes
-//   part_a[s, i, k]     = sum over the part's j of g * 1[a_ik + b_jk > 0]
-//   part_b[group, j, k] = sum over the group's i of the same (the cluster's
-//                         blocks add their sums in rank order)
-//   dw_part[it * splits + s, k] = sum_i a * part_a + sum_j b * (the block's S_B)
+// Block (column tile kt, i tile it, j part s). Writes
+//   part_a[s, i, k]  = sum over the part's j of g * 1[a_ik + b_jk > 0]
+//   part_b[it, j, k] = sum over the tile's i of the same
+//   dw_part[it * splits + s, k] = sum_i a * part_a + sum_j b * part_b
 //   g_part[it * splits + s]     = sum of the block's g tile (column tile 0)
 __global__ void __launch_bounds__(NT)
 pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -166,10 +149,8 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     float* __restrict__ part_b, float* __restrict__ dw_part,
                     float* __restrict__ g_part, int n1, int n2, int k, int splits,
                     int span) {
-  // two stages, double-buffered (after the loop the same memory holds `red`),
-  // then the block's S_B for its span
-  extern __shared__ __align__(16) float smem[];
-  float* sb = smem + 2 * STAGE;
+  // two stages, double-buffered; after the loop the same memory holds `red`
+  __shared__ __align__(16) float smem[2 * STAGE];
   __shared__ float gsum_s[NT];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int kt = blockIdx.x, it = blockIdx.y, s = blockIdx.z;
@@ -253,7 +234,8 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       for (int q = 0; q < RJ; ++q) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          sb[(j0 - jb + c + q) * BK + 32 * h + lane] = sbq[h][q];
+          const int j = j0 + c + q, col = k0 + 32 * h + lane;
+          if (j < je && col < k) part_b[((size_t)it * n2 + j) * k + col] = sbq[h][q];
           dw[h] = fmaf(-bn[h][q], sbq[h][q], dw[h]);
         }
       }
@@ -305,19 +287,6 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     if (tid == 0) g_part[blk] = gsum_s[0];
   }
 
-  // S_B of the group: every block of the cluster adds, for its share of the
-  // span's (row, column) entries, the cluster's S_B in rank order
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int nc = cluster.dim_blocks().y, rank = cluster.block_rank();
-  const int group = it / nc, rows = je - jb;
-  for (int e = rank * NT + tid; e < rows * BK; e += nc * NT) {
-    float sum = 0.f;
-    for (int q = 0; q < nc; ++q) sum += cluster.map_shared_rank(sb, q)[e];
-    const int col = k0 + e % BK;
-    if (col < k) part_b[((size_t)group * n2 + jb + e / BK) * k + col] = sum;
-  }
-  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // Threads [0, (n1 + n2) * k): dA = w2 * (sum of the a_parts partials), then dB
@@ -374,12 +343,11 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, float* out
 }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
-// the S_B partials of each cluster of i tiles, and each block's dw2 and db2
-// partials.
+// the S_B partials of each i tile, and each block's dw2 and db2 partials.
 long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
   const Plan p = plan(n1, n2, k);
   const long long blocks = (long long)p.tiles * p.splits;
-  return ((long long)p.splits * n1 + (long long)p.groups * n2 + blocks) * k + blocks;
+  return ((long long)p.splits * n1 + (long long)p.tiles * n2 + blocks) * k + blocks;
 }
 
 // dA (n1, k), dB (n2, k), dw2 (k) and db2 (1) from a (n1, k), b (n2, k),
@@ -390,44 +358,21 @@ int pairwise_mlp_bwd(const float* a, const float* b, const float* w2, const floa
                      int n1, int n2, int k, void* stream) {
   if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  static bool configured[MAX_DEVICES] = {};  // more shared memory than the default 48 KB
-  if (dev >= MAX_DEVICES || !configured[dev]) {
-    err = cudaFuncSetAttribute(pairwise_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < MAX_DEVICES) configured[dev] = true;
-  }
   const Plan p = plan(n1, n2, k);
   float* part_a = scratch;
   float* part_b = part_a + (size_t)p.splits * n1 * k;
-  float* dw_part = part_b + (size_t)p.groups * n2 * k;
+  float* dw_part = part_b + (size_t)p.tiles * n2 * k;
   float* g_part = dw_part + (size_t)p.tiles * p.splits * k;
 
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.kt, p.tiles, p.splits);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = (2 * STAGE + p.span * BK) * sizeof(float);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = p.cluster;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pairwise_bwd_kernel, a, b, g, part_a, part_b, dw_part,
-                           g_part, n1, n2, k, p.splits, p.span);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
+  pairwise_bwd_kernel<<<dim3(p.kt, p.tiles, p.splits), NT, 0, s>>>(
+      a, b, g, part_a, part_b, dw_part, g_part, n1, n2, k, p.splits, p.span);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long elems = (long long)(n1 + n2) * k;
   const int elem_blocks = (int)((elems + FIN - 1) / FIN);
   pairwise_finish_kernel<<<elem_blocks + (k + FIN - 1) / FIN, FIN, 0, s>>>(
-      part_a, p.splits, n1, da, part_b, p.groups, n2, db, w2, dw_part, p.tiles * p.splits,
+      part_a, p.splits, n1, da, part_b, p.tiles, n2, db, w2, dw_part, p.tiles * p.splits,
       dw2, g_part, db2, k, elem_blocks);
   return static_cast<int>(cudaGetLastError());
 }
