@@ -17,34 +17,53 @@
 // tensor cores. Each (i, j, k) needs an add, a comparison and one
 // accumulation each into S_A and S_B: 4 * N1 * N2 * K = 642 Mop at the
 // cardiac shape (560 x 560 x 512) against a few MB of inputs, far above the
-// card's ridge point. Adds and comparisons issue one per lane per clock, half
-// the FMA-counted 67 TFLOP/s, so the issue slots set the floor: about
-// 4 * 160.6 M / (132 SMs * 128 lanes * 1.98 GHz) = 19 us at 560^2. The
-// comparison sits between the add and the reduction, so no part of it is a
-// matrix product.
+// card's ridge point. The comparison sits between the add and the sums, so no
+// part of it is a matrix product, and adds and comparisons issue one per lane
+// per clock: half the FMA-counted 67 TFLOP/s. Here a triple costs three issue
+// slots: the compiler folds a + b > 0 into one comparison a > -b (exact:
+// rounding never changes the sign of a sum) and adds g into S_A and S_B under
+// its predicate. So the floor is 3 * 160.6 M / (132 SMs * 128 lanes *
+// 1.98 GHz) = 14 us at 560^2.
 //
 // What the design does about it:
-//  * Register tiles. A block owns 32 columns of k (one per lane), TI = 32 rows
-//    of i and one part of the j axis. Every thread keeps the 32 values a[i,k]
-//    of its column and their 32 S_A sums in registers. Its warp walks its
-//    share of j four rows at a time: b[j,k] comes from shared memory, and g
-//    from a float4 broadcast read that serves 4 (i, j) pairs of all 32 lanes.
-//    So a triple costs the add, the comparison and two predicated adds, plus
-//    a quarter of a shared load per i row of four j.
-//  * One pass. S_A and S_B accumulate together: S_B of four j rows is
-//    complete over the block's 32 i rows when the warp leaves them, and goes
-//    to scratch as the block's partial. S_A is summed over the block's four
-//    warps in shared memory at the end and goes to scratch as the partial of
-//    its j part. The parts are chosen so that the grid holds about four
-//    blocks per SM; at 560^2 that is 2 parts and 576 blocks.
-//  * dw2 leaves the triple loop. By the identity above each block adds
-//    a * S_A and b * S_B of its own partial sums, unscaled, so a zero in w2
-//    loses nothing; db2 is summed from the g values the block stages.
+//  * Register tiles. A block owns BK = 64 columns of k (two per lane), TI = 32
+//    rows of i and one part of the j axis. Every thread keeps a[i,k] of its 32
+//    rows and 2 columns, and their S_A sums, in registers. Its warp walks its
+//    share of the part four j rows at a time: b[j,k] comes from shared
+//    memory, and g from one float4 broadcast read that serves 8 triples of
+//    every lane.
+//  * One pass. S_A and S_B accumulate together. S_B of four j rows is complete
+//    over the block's 32 rows when the warp leaves them and goes to scratch as
+//    the tile's partial; S_A is summed over the block's four warps in shared
+//    memory at the end and goes to scratch as the part's partial. The j axis
+//    is cut into as many parts as bring the grid near four blocks an SM.
+//  * Staging overlaps the sums: the g tile (32 x 32) and the b tile (32 x 64)
+//    of the next j rows are copied into a second shared-memory stage with
+//    `cp.async` while the current one is summed.
+//  * dw2 leaves the triple loop: by the identity above each block adds
+//    a * S_A and b * S_B of its own partial sums, from the registers that hold
+//    them, unscaled, so a zero in w2 loses nothing; db2 is summed from the g
+//    values the block stages.
 //  * No atomics. `pairwise_finish_kernel` adds the partials in a fixed order,
 //    one thread per output across the whole card, scales by w2, and sums the
-//    per-block dw2 and db2 partials; repeated runs give identical bits.
-//    Ragged rows and a ragged K are masked with zeros: a zero of g adds
-//    nothing and a masked column is never written.
+//    blocks' dw2 and db2 partials; repeated runs give identical bits. Ragged
+//    rows and a ragged K are zero-filled: a zero of g adds nothing and a
+//    masked column is never written.
+//
+// Measured (`python -m graphecho_torch.pairwise_bench`, NVIDIA H100 80GB HBM3,
+// 700.00 W): at 560^2 the main pass takes 0.047 ms and the finishing pass
+// 0.009 ms, against 0.206 ms for the three kernels it replaces. Without the
+// triple loop the main pass still takes 0.019 ms: staging, 26 MB of partial
+// sums, and each block's first loads and epilogue at two blocks an SM (212
+// registers a thread). Tried and slower, in one call against 0.059 ms for
+// this design: S_A and S_B in two passes (0.096 ms, against 0.073 for the
+// same code fused, one column a lane: commit f8871d4); S_B summed across a
+// thread-block cluster in distributed shared memory (0.080 ms, commit
+// 3f1c2de: the cluster's blocks wait for each other); several i tiles a
+// block, S_B summed in shared memory (0.066 ms, commit e7e27d1: 240 blocks
+// leave SMs idle). In other calls: 16-row tiles at four blocks an SM (0.077
+// against 0.060 ms: twice the S_B partials), and masks from `set.gt` with
+// FFMAs in place of predicated adds (1-2% slower).
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -118,17 +137,6 @@ Plan plan(int n1, int n2, int k) {
   p.span = (stages + want - 1) / want * SJ;
   p.splits = (n2 + p.span - 1) / p.span;
   return p;
-}
-
-// 1.0f where a > b, else 0.0f. a + b > 0 exactly where a > -b (rounding never
-// changes the sign of a sum, and a sum rounds to +0 only where it is 0), so
-// step_gt(a, -b) is the mask 1[a + b > 0] without the add; and as a float it
-// needs no predicate register (predicated adds waited on the two predicates
-// the compiler rotated).
-__device__ __forceinline__ float step_gt(float a, float b) {
-  float r;
-  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
 }
 
 // 4-byte asynchronous copy from device to shared memory; zero-fills when !valid.
@@ -206,12 +214,12 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int u = 0; u < SJ / (WJ * RJ); ++u) {
       const int c = (u * WJ + w) * RJ;
-      float bn[2][RJ], sbq[2][RJ];  // -b, and the S_B sums over the block's rows
+      float bv[2][RJ], sbq[2][RJ];  // b, and the S_B sums over the block's rows
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int q = 0; q < RJ; ++q) {
-          bn[h][q] = -bs[(c + q) * BK + 32 * h + lane];
+          bv[h][q] = bs[(c + q) * BK + 32 * h + lane];
           sbq[h][q] = 0.f;
         }
       }
@@ -223,10 +231,10 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
         for (int q = 0; q < RJ; ++q) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            // m * g + sum is sum + g or sum, rounded once: the same as an add
-            const float m = step_gt(av[h][r], bn[h][q]);
-            sa[h][r] = fmaf(m, gq[q], sa[h][r]);
-            sbq[h][q] = fmaf(m, gq[q], sbq[h][q]);
+            if (av[h][r] + bv[h][q] > 0.f) {
+              sa[h][r] += gq[q];
+              sbq[h][q] += gq[q];
+            }
           }
         }
       }
@@ -236,7 +244,7 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
         for (int h = 0; h < 2; ++h) {
           const int j = j0 + c + q, col = k0 + 32 * h + lane;
           if (j < je && col < k) part_b[((size_t)it * n2 + j) * k + col] = sbq[h][q];
-          dw[h] = fmaf(-bn[h][q], sbq[h][q], dw[h]);
+          dw[h] = fmaf(bv[h][q], sbq[h][q], dw[h]);
         }
       }
     }

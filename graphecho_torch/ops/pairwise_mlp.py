@@ -139,18 +139,18 @@ def launch_fwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor) -> torch.Tens
 def launch_bwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dA, dB, dw2, db2) on the card for the cotangent `g` (N1, N2); db2 has
-    shape (1,)."""
+    shape (1,). dA, dB and the scratch are views of one buffer, dw2 and db2 of
+    another (a small one, so a `.grad` that keeps it holds nothing else)."""
     n1, n2, k = _check_inputs(a, b, w2, g)
-    dev = a.device
-    da = torch.empty((n1, k), device=dev, dtype=torch.float32)
-    db = torch.empty((n2, k), device=dev, dtype=torch.float32)
-    dw2 = torch.empty((k,), device=dev, dtype=torch.float32)
-    db2 = torch.empty((1,), device=dev, dtype=torch.float32)
-    scratch = torch.empty((_scratch_floats(n1, n2, k),), device=dev, dtype=torch.float32)
+    nk1, nk2 = n1 * k, n2 * k
+    big = a.new_empty((nk1 + nk2 + _scratch_floats(n1, n2, k),))
+    small = a.new_empty((k + 1,))
+    da, db = big.as_strided((n1, k), (k, 1)), big.as_strided((n2, k), (k, 1), nk1)
+    dw2, db2 = small.as_strided((k,), (1,)), small.as_strided((1,), (1,), k)
+    ptr, sptr = big.data_ptr(), small.data_ptr()
     err = _lib().pairwise_mlp_bwd(
-        a.data_ptr(), b.data_ptr(), w2.data_ptr(), g.data_ptr(), da.data_ptr(),
-        db.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), n1, n2, k,
-        _stream(a))
+        a.data_ptr(), b.data_ptr(), w2.data_ptr(), g.data_ptr(), ptr, ptr + 4 * nk1, sptr,
+        sptr + 4 * k, ptr + 4 * (nk1 + nk2), n1, n2, k, _stream(a))
     cuda_build.check(err, "pairwise_mlp_bwd")
     LAUNCHES["pairwise_mlp_bwd"] += 1
     return da, db, dw2, db2

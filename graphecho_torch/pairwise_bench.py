@@ -2,18 +2,22 @@
 
     python -m graphecho_torch.pairwise_bench [--source NAME=FILE.cu ...]
 
-Builds `csrc/pairwise_mlp.cu` as it is, and any other version of the file
-given with `--source`, and times each backward through its C entry point
-`pairwise_mlp_bwd`, without the Python wrapper, at 112x112x512 (camus) and
-560x560x512 (cardiac): CUDA events around 50 back-to-back launches after 3
-warm-up ones, the smaller of two rounds, the versions taken in turns. A
-version whose backward is the older pair of entry points
+Builds `csrc/pairwise_mlp.cu` as it is, an ablation of it without the loop
+over (i, j, k) triples (`no_triples`: staging, partial sums, epilogue and the
+finishing pass remain, so the difference estimates the loop), and any other
+version of the file given with `--source`. Each is timed through its C entry
+point `pairwise_mlp_bwd`, without the Python wrapper, at 112x112x512 (camus)
+and 560x560x512 (cardiac): CUDA events around 50 back-to-back launches after
+3 warm-up ones, the smaller of two rounds, the versions taken in turns (the
+`--source` versions first, then this tree's, then the second round in the
+reverse order: parent, PR, PR, parent). A version whose backward is the older pair of entry points
 (`pairwise_mlp_bwd_da` and `pairwise_mlp_bwd_db`) is timed through a small
 adapter appended to its text, which calls the two in turn. Each version's
 outputs are held against the plain version first (largest abs error per
 output). Then `torch.profiler` gives each version's device ms per call by
 kernel name (the main pass against the finishing pass), and the host time of
-one `launch_bwd` call is taken at a shape too small to keep the card busy.
+one `launch_bwd` call, and of its C entry point alone, is taken at a shape too
+small to keep the card busy.
 Prints one JSON line per build (registers and spills from `ptxas -v`), per
 shape and for the host time, and last the card's name and power limit.
 Needs a CUDA device and `nvcc`.
@@ -39,6 +43,9 @@ from graphecho_torch.ops import pairwise_mlp as pm
 from graphecho_torch.profile_step import kernel_base_name
 
 SHAPES = ((112, 112, 512), (560, 560, 512))
+# the text `no_triples` replaces, and by what
+TRIPLES = ("      for (int r = 0; r < TI; ++r) {\n        const float4 gv",
+           "      for (int r = 0; r < 0; ++r) {\n        const float4 gv")
 # the backward entry point of a version that has only the older pair
 ADAPTER = """
 extern "C" long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
@@ -117,20 +124,33 @@ def device_ms_by_kernel(call, reps: int = 20) -> Dict[str, float]:
     return out
 
 
-def wrapper_host_us(calls: int = 500) -> float:
-    """Host time of one `launch_bwd` call at a shape too small to keep the card
-    busy (16 x 16 x 32), launches queued without a sync."""
-    a, b = torch.randn(16, 32, device="cuda"), torch.randn(16, 32, device="cuda")
-    w2, g = torch.randn(32, device="cuda"), torch.randn(16, 16, device="cuda")
+def host_us(call, calls: int = 500) -> float:
+    """Host time of one call, launches queued without a sync."""
     for _ in range(20):
-        pm.launch_bwd(a, b, w2, g)
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        pm.launch_bwd(a, b, w2, g)
+        call()
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     return seconds / calls * 1e6
+
+
+def wrapper_host_us() -> Dict[str, float]:
+    """Host µs of one `launch_bwd` call, and of its C entry point alone with
+    the arguments made beforehand, at a shape too small to keep the card busy
+    (16 x 16 x 32)."""
+    a, b = torch.randn(16, 32, device="cuda"), torch.randn(16, 32, device="cuda")
+    w2, g = torch.randn(32, device="cuda"), torch.randn(16, 16, device="cuda")
+    outs = [torch.empty_like(a), torch.empty_like(b), torch.empty(33, device="cuda")]
+    scratch = torch.empty(pm._scratch_floats(16, 16, 32), device="cuda")
+    args = (a.data_ptr(), b.data_ptr(), w2.data_ptr(), g.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), outs[2].data_ptr() + 128,
+            scratch.data_ptr(), 16, 16, 32, torch.cuda.current_stream().cuda_stream)
+    lib = pm._lib()
+    return {"launch_bwd_host_us": host_us(lambda: pm.launch_bwd(a, b, w2, g)),
+            "c_entry_host_us": host_us(lambda: lib.pairwise_mlp_bwd(*args))}
 
 
 def main() -> None:
@@ -141,10 +161,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("pairwise_bench needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    sources = {"kernel": (cuda_build.CSRC / "pairwise_mlp.cu").read_text()}
+    sources = {}
     for item in args.source:
         name, path = item.split("=", 1)
         sources[name] = Path(path).read_text()
+    sources["kernel"] = (cuda_build.CSRC / "pairwise_mlp.cu").read_text()
+    if TRIPLES[0] not in sources["kernel"]:
+        raise RuntimeError(f"pairwise_bench: csrc/pairwise_mlp.cu no longer holds {TRIPLES[0]!r}")
+    sources["no_triples"] = sources["kernel"].replace(*TRIPLES)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(sources, Path(tmp))
         for name, (_, info) in libs.items():
@@ -173,13 +197,13 @@ def main() -> None:
                               for out, got, w in zip(("dA", "dB", "dw2", "db2"), outs, want)}
                 calls[name] = call
             ms: Dict[str, float] = {}
-            for _ in range(2):
-                for name, call in calls.items():
-                    ms[name] = min(ms.get(name, float("inf")), time_ms(call))
+            for order in (list(calls), list(calls)[::-1]):
+                for name in order:
+                    ms[name] = min(ms.get(name, float("inf")), time_ms(calls[name]))
             by_kernel = {name: device_ms_by_kernel(call) for name, call in calls.items()}
             print(json.dumps({"shape": [n1, n2, k], "ms": ms, "device_ms_by_kernel": by_kernel,
                               "max_abs_err": errs}), flush=True)
-    print(json.dumps({"launch_bwd_host_us": wrapper_host_us()}), flush=True)
+    print(json.dumps(wrapper_host_us()), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)

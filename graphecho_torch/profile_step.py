@@ -45,7 +45,7 @@ def kernel_base_name(name: str) -> str:
     `pairwise_bwd_kernel` of '... pairwise_bwd_kernel<true>(...)'; the name
     itself where neither form matches."""
     match = (re.search(r"::(\w+)\s*(?:<[^()]*>)?\(", name)
-             or re.match(r"(?:\w+\s+)*?(\w+)\s*(?:<[^()]*>)?\(", name))
+             or re.match(r"void\s+(\w+)\s*(?:<[^()]*>)?\(", name))
     return match.group(1) if match else name
 
 

@@ -12,6 +12,9 @@ Tolerances: forward atol 1e-4, gradients rtol/atol 1e-3, those of the JAX
 package's own interpret-vs-XLA test (`tests/test_graph_matching.py:487,495`).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +24,9 @@ import torch
 from graphecho_tpu.ops.pairwise_mlp import pairwise_mlp as jax_pairwise_mlp
 from graphecho_tpu.ops.pallas.pairwise_mlp_kernel import pallas_pairwise_mlp
 
+from graphecho_torch import pairwise_bench
 from graphecho_torch.ops import pairwise_mlp as pm
+from graphecho_torch.profile_step import PAIRWISE_KERNELS, kernel_base_name
 
 SHAPES = [(70, 50, 40), (112, 112, 128)]
 
@@ -120,3 +125,51 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pm.launch_bwd(a, b, w2, g)
 
+
+
+# ----------------------------------------------------- the measurement tools
+_SOURCE = (Path(__file__).resolve().parent.parent / "graphecho_torch" / "csrc"
+           / "pairwise_mlp.cu").read_text()
+
+
+@pytest.mark.parametrize("name,base", [
+    ("void (anonymous namespace)::fwd_kernel(float const*, float const*, float const*, "
+     "float*, int, int, int)", "fwd_kernel"),
+    ("void (anonymous namespace)::pairwise_bwd_kernel(float const*, float const*, "
+     "float const*, float*, float*, float*, float*, int, int, int, int, int)",
+     "pairwise_bwd_kernel"),
+    ("void flash_fwd_kernel<Flash_fwd_kernel_traits<128, 64> >(Flash_fwd_params)",
+     "flash_fwd_kernel"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD (Device -> Device)"),
+])
+def test_profile_step_reads_kernel_function_names(name, base):
+    assert kernel_base_name(name) == base
+
+
+def test_profile_step_knows_every_pairwise_kernel():
+    """`profile_step` counts the pairwise kernels by function name: every
+    `__global__` of csrc/pairwise_mlp.cu is in its list, and no other kernel of
+    the port's sources is."""
+    names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)", _SOURCE)
+    assert set(names) == {"fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel"}
+    assert set(names) <= set(PAIRWISE_KERNELS)
+    knn = (Path(__file__).resolve().parent.parent / "graphecho_torch" / "csrc"
+           / "knn.cu").read_text()
+    knn_names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)", knn)
+    assert knn_names and not set(knn_names) & set(PAIRWISE_KERNELS)
+
+
+def test_pairwise_bench_adapts_only_the_older_interface():
+    assert pairwise_bench.with_entry_point(_SOURCE) == _SOURCE
+    older = "int pairwise_mlp_bwd_da(float* x) {}\nint pairwise_mlp_bwd_db(float* x) {}\n"
+    adapted = pairwise_bench.with_entry_point(older)
+    assert adapted.startswith(older) and "pairwise_mlp_bwd(" in adapted
+    assert "pairwise_mlp_bwd_scratch_floats(" in adapted
+    with pytest.raises(ValueError, match="no backward entry point"):
+        pairwise_bench.with_entry_point("int pairwise_mlp_fwd(float* x) {}\n")
+
+
+def test_pairwise_bench_ablation_finds_its_edit_point():
+    """`no_triples` cuts the (i, j, k) loop by exact text: the kernel's source
+    holds it once."""
+    assert _SOURCE.count(pairwise_bench.TRIPLES[0]) == 1
