@@ -61,10 +61,7 @@ def build(sources: Dict[str, str], workdir: Path) -> Dict[str, ctypes.CDLL]:
         name, text = item
         src, lib = workdir / f"{name}.cu", workdir / f"lib{name}.so"
         src.write_text(text)
-        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+        cuda_build.nvcc_compile(src, lib)
         handle = ctypes.CDLL(str(lib))
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.knn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]

@@ -43,6 +43,16 @@ def _nvcc() -> str:
                        "the CUDA kernels of graphecho_torch cannot be built")
 
 
+def nvcc_compile(src: Path, out: Path, *extra: str) -> str:
+    """Compile `src` into the shared library `out` with NVCC_FLAGS and `extra`;
+    returns nvcc's stderr (where `-Xptxas -v` reports) and raises on failure."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    return proc.stderr
+
+
 def library_path(name: str) -> Path:
     """Where `csrc/<name>.cu` is built to, keyed by its content and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
@@ -59,11 +69,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}")
+    nvcc_compile(CSRC / f"{name}.cu", tmp)
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return out

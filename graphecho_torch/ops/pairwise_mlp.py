@@ -147,7 +147,7 @@ def launch_bwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, g: torch.Tens
     small = a.new_empty((k + 1,))
     da, db = big.as_strided((n1, k), (k, 1)), big.as_strided((n2, k), (k, 1), nk1)
     dw2, db2 = small.as_strided((k,), (1,)), small.as_strided((1,), (1,), k)
-    ptr, sptr = big.data_ptr(), small.data_ptr()
+    ptr, sptr = big.data_ptr(), small.data_ptr()  # addresses in bytes, 4 a float
     err = _lib().pairwise_mlp_bwd(
         a.data_ptr(), b.data_ptr(), w2.data_ptr(), g.data_ptr(), ptr, ptr + 4 * nk1, sptr,
         sptr + 4 * k, ptr + 4 * (nk1 + nk2), n1, n2, k, _stream(a))

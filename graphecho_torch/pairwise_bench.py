@@ -76,17 +76,14 @@ def build(sources: Dict[str, str], workdir: Path) -> Dict[str, Tuple[ctypes.CDLL
         name, text = item
         src, lib = workdir / f"{name}.cu", workdir / f"lib{name}.so"
         src.write_text(with_entry_point(text))
-        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-                               "-o", str(lib), str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+        stderr = cuda_build.nvcc_compile(src, lib, "-Xptxas", "-v")
         handle = ctypes.CDLL(str(lib))
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.pairwise_mlp_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         handle.pairwise_mlp_bwd.restype = ctypes.c_int
         handle.pairwise_mlp_bwd_scratch_floats.argtypes = [i, i, i]
         handle.pairwise_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
-        info = [ln.strip() for ln in proc.stderr.splitlines()
+        info = [ln.strip() for ln in stderr.splitlines()
                 if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
         return name, (handle, info)
 

@@ -7,11 +7,11 @@ A step is one train step of a recipe's trainer at full width
 one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. Prints one JSON object: the
-steady step time, the device's busy time per step (the union of its kernel intervals) and idle share, the
-number of kernel launches per step, the kNN-graph kernel's and the pairwise-MLP
-kernels' launches and device time per step, the host time in each phase of the step and the device time by
-kernel name. It needs a CUDA device and fails without
-one.
+steady step time, the device's busy time per step (the union of its kernel
+intervals) and idle share, the number of kernel launches per step, the
+kNN-graph kernel's and the pairwise-MLP kernels' launches and device time per
+step, the host time in each phase of the step and the device time by kernel
+name. It needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
