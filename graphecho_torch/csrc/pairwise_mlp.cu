@@ -18,8 +18,8 @@
 // accumulation each into S_A and S_B: 4 * N1 * N2 * K = 642 Mop at the
 // cardiac shape (560 x 560 x 512) against a few MB of inputs, far above the
 // card's ridge point. The comparison sits between the add and the sums, so no
-// part of it is a matrix product, and adds and comparisons issue one per lane
-// per clock: half the FMA-counted 67 TFLOP/s. Here a triple costs three issue
+// part of it is a matrix product, and adds and comparisons run at one per lane
+// per clock: half the FMA-counted 67 TFLOP/s. Here a triple costs three instruction
 // slots: the compiler folds a + b > 0 into one comparison a > -b (exact:
 // rounding never changes the sign of a sum) and adds g into S_A and S_B under
 // its predicate. So the floor is 3 * 160.6 M / (132 SMs * 128 lanes *
