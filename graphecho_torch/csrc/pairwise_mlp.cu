@@ -62,7 +62,9 @@
 // 3f1c2de: the cluster's blocks wait for each other); several i tiles a
 // block, S_B summed in shared memory (0.066 ms, commit e7e27d1: 240 blocks
 // leave SMs idle). In other calls: 16-row tiles at four blocks an SM (0.077
-// against 0.060 ms: twice the S_B partials), and masks from `set.gt` with
+// against 0.060 ms: twice the S_B partials); three blocks an SM by launch
+// bounds (0.069 against 0.059 ms: 168 registers and spills); grids of about
+// three or six blocks an SM (0.061, 0.064 ms); masks from `set.gt` with
 // FFMAs in place of predicated adds (1-2% slower).
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
@@ -294,7 +296,6 @@ pairwise_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
     if (tid == 0) g_part[blk] = gsum_s[0];
   }
-
 }
 
 // Threads [0, (n1 + n2) * k): dA = w2 * (sum of the a_parts partials), then dB
