@@ -8,14 +8,19 @@ Phases, each printing one JSON line:
   1. environment: torch/CUDA versions, TF32 switched off, the card's name and
      power limit from nvidia-smi;
   2. build: `nvcc` of every source in graphecho_torch/csrc, all at once;
-  3. kernels: the pairwise-MLP forward and backward (`launch_bwd`: dA, dB,
-     dw2, db2) against the plain version at (112,112,512), (560,560,512) and a
-     ragged (70,50,40): forward atol 1e-4, gradients rtol/atol 1e-3 (the JAX
-     package's own bounds), two backward runs bit-identical in all four
-     outputs; CUDA-event times (median of 20 after warm-up) beside the least
-     time the card could take. Then `kernel_exact` lines: integer inputs whose
-     sums every version computes exactly (many a+b exactly 0), where the
-     backward must equal the plain version bit for bit;
+  3. kernels: the pairwise-MLP forward (`launch_fwd`, b2 added in the
+     kernel) and backward (`launch_bwd`: dA, dB, dw2, db2) against the plain
+     version at (112,112,512), (560,560,512) and a ragged (70,50,40): forward
+     atol 1e-4, gradients rtol/atol 1e-3 (the JAX package's own bounds), two
+     runs of each bit-identical in every output; CUDA-event times (median of
+     20 after warm-up) beside the least time the card could take. Then
+     `kernel_exact` lines: integer inputs whose sums every version computes
+     exactly (many a+b exactly 0), where the forward (also at 1x112x513) and
+     the backward must equal the plain version bit for bit; and
+     `kernel_nan` lines: NaN in one row of a and one of b at 112^2 and 560^2,
+     where the forward must have NaN exactly where the plain version has it
+     (as `jnp.maximum` gives it) and agree elsewhere within 1e-4, with the
+     backward's NaN pattern beside the plain version's (recorded, not held);
   3b. knn: the kNN-graph kernel against its plain version at each pvig_s
      Grapher shape (batch 32, with the Grapher's relative-position bias), a
      ragged self graph without bias, a normalize=False case with k=45 and
@@ -166,6 +171,40 @@ def check_backward(what: str, a, b, w2, g, exact: bool):
     return errs, got
 
 
+def check_forward(what: str, a, b, w2, b2, exact: bool):
+    """`launch_fwd` (b2 added in the kernel) against the plain version: atol
+    1e-4, or equal bit for bit where `exact`; two runs bit-identical. Returns
+    (max abs err, the output)."""
+    from graphecho_torch.ops import pairwise_mlp as pm
+
+    got = pm.launch_fwd(a, b, w2, b2)
+    want = pm.pairwise_mlp(a, b, w2, b2)
+    err = (got - want).abs().max().item()
+    ok = torch.equal(got, want) if exact else err <= 1e-4
+    check(ok, f"forward {what}: max abs err {err}" + (" on exact inputs" if exact else ""))
+    check(torch.equal(got, pm.launch_fwd(a, b, w2, b2)),
+          f"forward {what}: two runs differ in their bits")
+    return err, got
+
+
+def integer_inputs(n1: int, n2: int, k: int, gen: torch.Generator):
+    """a, b in [-4, 4] (many a+b exactly 0), w2 in [-2, 2], g in [-3, 3]: every
+    sum stays below 2^24, so each version computes it exactly."""
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, device="cuda", generator=gen).float()
+
+    return ints(-4, 4, n1, k), ints(-4, 4, n2, k), ints(-2, 2, k), ints(-3, 3, n1, n2)
+
+
+def nan_pattern(x: torch.Tensor, want: torch.Tensor):
+    """(NaN where `want` has NaN and nowhere else, largest abs difference
+    elsewhere)."""
+    same = torch.equal(torch.isnan(x), torch.isnan(want))
+    rest = ~torch.isnan(want)
+    diff = (x[rest] - want[rest]).abs().max().item() if bool(rest.any()) else 0.0
+    return same, diff
+
+
 def phase_kernels():
     """Each kernel against the plain version on the card; returns the rows of
     the `kernels` line at the main path's shape."""
@@ -179,18 +218,15 @@ def phase_kernels():
         b2 = torch.tensor(0.2, device="cuda")
         g = torch.randn(n1, n2, device="cuda", generator=gen)
 
-        out = pm.launch_fwd(a, b, w2) + b2
-        ref = pm.pairwise_mlp(a, b, w2, b2)
-        err_fwd = (out - ref).abs().max().item()
-        check(err_fwd <= 1e-4, f"forward {n1}x{n2}x{k}: max abs err {err_fwd}")
+        err_fwd, _ = check_forward(f"{n1}x{n2}x{k}", a, b, w2, b2, exact=False)
         errs, _ = check_backward(f"{n1}x{n2}x{k}", a, b, w2, g, exact=False)
 
-        # forward: per (i, j, k) a+b, relu, *w2, +
-        in_bytes = 4 * (n1 * k + n2 * k + k)
+        # forward: per (i, j, k) a+b, relu, *w2, +; per (i, j) + b2
+        in_bytes = 4 * (n1 * k + n2 * k + k + 1)
         kernels = {
-            "pairwise_mlp_fwd": (lambda: pm.launch_fwd(a, b, w2),
+            "pairwise_mlp_fwd": (lambda: pm.launch_fwd(a, b, w2, b2),
                                  lambda: pm.pairwise_mlp(a, b, w2, b2),
-                                 (4 * n1 * n2 * k, in_bytes + 4 * n1 * n2), err_fwd,
+                                 (4 * n1 * n2 * k + n1 * n2, in_bytes + 4 * n1 * n2), err_fwd,
                                  "graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py:37"),
             "pairwise_mlp_bwd": (lambda: pm.launch_bwd(a, b, w2, g),
                                  lambda: pm.pairwise_mlp_backward_reference(a, b, w2, g),
@@ -214,20 +250,52 @@ def phase_kernels():
                               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "library_ms": None}
 
-    # integer a, b in [-4, 4] (many a+b exactly 0), g in [-3, 3], w2 in [-2, 2]:
-    # every sum stays below 2^24, so each version computes it exactly
-    for n1, n2, k in ((560, 560, 512), (70, 50, 40)):
+    # integer inputs: every version computes each sum exactly, so the kernels
+    # must equal the plain version bit for bit
+    for n1, n2, k in ((560, 560, 512), (70, 50, 40), (1, 112, 513)):
         gen = torch.Generator(device="cuda").manual_seed(n1 + 3 * k)
-
-        def ints(lo, hi, *shape):
-            return torch.randint(lo, hi + 1, shape, device="cuda", generator=gen).float()
-
-        a, b, w2, g = ints(-4, 4, n1, k), ints(-4, 4, n2, k), ints(-2, 2, k), ints(-3, 3, n1, n2)
+        a, b, w2, g = integer_inputs(n1, n2, k, gen)
         zeros = int(((a[:, None, :] + b[None, :, :]) == 0).sum())
+        b2 = torch.tensor(0.25, device="cuda")
+        _, out = check_forward(f"{n1}x{n2}x{k} exact", a, b, w2, b2, exact=True)
+        emit("kernel_exact", name="pairwise_mlp_fwd", shape=[n1, n2, k], equal=True,
+             max_abs_err=0.0, zero_sums=zeros, deterministic=True,
+             max_abs_out=out.abs().max().item())
+        if n1 == 1:  # the backward's cases stay as they were
+            continue
         errs, got = check_backward(f"{n1}x{n2}x{k} exact", a, b, w2, g, exact=True)
         emit("kernel_exact", name="pairwise_mlp_bwd", shape=[n1, n2, k], equal=True,
              max_abs_err=max(errs.values()), zero_sums=zeros, deterministic=True,
              max_abs_dw2=got[2].abs().max().item())
+
+    # NaN in one row of a and one row of b: the forward has NaN exactly where
+    # the plain version (and jnp.maximum in the JAX package) has it; the
+    # backward's pattern is recorded beside the plain version's
+    for n1, n2, k in ((112, 112, 512), (560, 560, 512)):
+        gen = torch.Generator(device="cuda").manual_seed(n1 + 5 * k)
+        a, b = (torch.randn(n, k, device="cuda", generator=gen) for n in (n1, n2))
+        w2 = torch.randn(k, device="cuda", generator=gen)
+        g = torch.randn(n1, n2, device="cuda", generator=gen)
+        b2 = torch.tensor(0.2, device="cuda")
+        a[5, 7] = float("nan")
+        b[n2 - 3, 11] = float("nan")
+        got = pm.launch_fwd(a, b, w2, b2)
+        want = pm.pairwise_mlp(a, b, w2, b2)
+        same, diff = nan_pattern(got, want)
+        check(same and diff <= 1e-4, f"forward NaN {n1}x{n2}x{k}: NaN where the plain version "
+                                     f"has none or the reverse ({same}), else max abs err {diff}")
+        check(torch.equal(got.nan_to_num(), pm.launch_fwd(a, b, w2, b2).nan_to_num()),
+              f"forward NaN {n1}x{n2}x{k}: two runs differ in their bits")
+        bwd = {}
+        for name, x, w in zip(("dA", "dB", "dw2", "db2"), pm.launch_bwd(a, b, w2, g),
+                              pm.pairwise_mlp_backward_reference(a, b, w2, g)):
+            w = w.reshape(x.shape)
+            same_b, diff_b = nan_pattern(x, w)
+            bwd[name] = {"nan": int(torch.isnan(x).sum()), "plain_nan": int(torch.isnan(w).sum()),
+                         "same_pattern": same_b, "max_abs_err_elsewhere": diff_b}
+        emit("kernel_nan", name="pairwise_mlp_fwd", shape=[n1, n2, k], nan=int(torch.isnan(got).sum()),
+             plain_nan=int(torch.isnan(want).sum()), same_pattern=same, max_abs_err_elsewhere=diff,
+             backward=bwd)
     torch.cuda.synchronize()
     return rows
 

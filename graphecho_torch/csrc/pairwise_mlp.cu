@@ -76,39 +76,208 @@
 
 namespace {
 
-constexpr int FT = 16;   // forward output tile: FT x FT threads, one output each
-constexpr int FKC = 64;  // forward K-chunk staged in shared memory
+// 4-byte asynchronous copy from device to shared memory; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 
-__global__ void fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           const float* __restrict__ w2, float* __restrict__ out,
-                           int n1, int n2, int k) {
-  __shared__ float a_s[FT][FKC + 1];
-  __shared__ float b_s[FT][FKC + 1];
-  __shared__ float w_s[FKC];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * FT + tx;
-  const int i0 = blockIdx.y * FT, j0 = blockIdx.x * FT;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < k; k0 += FKC) {
-    // FT*FKC values of a and of b per chunk, FT*FT threads: FKC/FT loads each
-    for (int e = tid; e < FT * FKC; e += FT * FT) {
-      const int r = e / FKC, c = e % FKC;
-      const bool kin = k0 + c < k;
-      a_s[r][c] = (i0 + r < n1 && kin) ? a[(size_t)(i0 + r) * k + k0 + c] : 0.f;
-      b_s[r][c] = (j0 + r < n2 && kin) ? b[(size_t)(j0 + r) * k + k0 + c] : 0.f;
+// 16-byte asynchronous copy (both addresses 16-byte aligned); zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// max(x, y) that returns NaN when either is NaN, as jnp.maximum and torch.relu
+// do; fmaxf would return the other operand.
+__device__ __forceinline__ float max_nan(float x, float y) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+
+// One forward shape class. A block owns BM = TM * TI rows of i and
+// BN = TN * TJ rows of j; its threads form S groups of TI x TJ, group s
+// taking columns [s * KG, (s + 1) * KG) of every staged chunk of KC = S * KG
+// columns of k; a thread holds TM x TN sums, rows ti + m * TI, columns
+// tj + n * TJ of the tile.
+template <int TM_, int TN_, int TI_, int TJ_, int S_, int KG_, int MINB_>
+struct FwdTile {
+  static constexpr int TM = TM_, TN = TN_, TI = TI_, TJ = TJ_, S = S_, KG = KG_;
+  static constexpr int MINB = MINB_;
+  static constexpr int BM = TM * TI, BN = TN * TJ, G = TI * TJ, NT = G * S;
+  static constexpr int KC = S * KG;
+  static constexpr int LD = KC + 4;  // row stride of a staged tile: rows fall on distinct banks
+  static constexpr int STAGE = (BM + BN) * LD + KC;  // the a tile, the b tile, then w2
+  static constexpr int RS = BN + 1;                  // row stride of the partial sums
+  static_assert(KG % 4 == 0 && TM * TN >= 1, "columns are read as float4");
+  static_assert(S * BM * RS <= 2 * STAGE, "the partial sums reuse the stages");
+};
+
+// The shape classes the plan picks from (`fwd_plan`).
+using FwdWide = FwdTile<4, 4, 8, 8, 4, 16, 3>;   // 32 x 32 outputs, 256 threads
+using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 4>;    // 32 x 16 outputs, 128 threads
+using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 2>;  // 16 x 8 outputs, 256 threads, K in 8
+
+// M[i, j] = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] for one tile.
+// Each (i, j, k) is one NaN-keeping max and one FMA:
+//   relu(a + b) = max(b, -a) + a   (exact: a + b > 0 exactly when b > -a), so
+//   M[i, j] = sum_k w2 * max(b_jk, -a_ik) + d_i + b2,  d_i = sum_k w2 * a_ik,
+// and d_i costs one FMA per (i, k) of a thread, 1/TN of the triples.
+// PAIRWISE_FWD_THREE_OPS builds the direct form (add, max, FMA) instead.
+template <class T>
+__global__ void __launch_bounds__(T::NT, T::MINB)
+pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    float* __restrict__ out, int n1, int n2, int k, int vec) {
+  constexpr int TM = T::TM, TN = T::TN, TI = T::TI, TJ = T::TJ, S = T::S, KG = T::KG;
+  constexpr int BM = T::BM, BN = T::BN, NT = T::NT, KC = T::KC, LD = T::LD;
+  constexpr int STAGE = T::STAGE, RS = T::RS;
+  __shared__ __align__(16) float smem[2 * STAGE];
+  const int tid = threadIdx.x, s = tid / T::G, t = tid % T::G;
+  const int ti = t / TJ, tj = t % TJ;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+
+  // copies columns k0.. of the a tile, the b tile and w2 into stage `buf`,
+  // zero past the edges (a zero of w2 adds nothing; masked rows are never stored)
+  auto stage = [&](int buf, int k0) {
+    float* as = smem + buf * STAGE;
+    float* ws = as + (BM + BN) * LD;
+    if (vec) {  // k % 4 == 0 and 16-byte aligned rows
+      for (int e = tid; e < (BM + BN) * (KC / 4); e += NT) {
+        const int r = e / (KC / 4), c = e % (KC / 4) * 4;
+        const int row = r < BM ? i0 + r : j0 + r - BM;
+        const bool in = (r < BM ? row < n1 : row < n2) && k0 + c < k;
+        const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + c;
+        cp_async16(as + r * LD + c, in ? src : a, in);
+      }
+      for (int e = tid; e < KC / 4; e += NT) {
+        const bool in = k0 + 4 * e < k;
+        cp_async16(ws + 4 * e, in ? w2 + k0 + 4 * e : w2, in);
+      }
+    } else {
+      for (int e = tid; e < (BM + BN) * KC; e += NT) {
+        const int r = e / KC, c = e % KC;
+        const int row = r < BM ? i0 + r : j0 + r - BM;
+        const bool in = (r < BM ? row < n1 : row < n2) && k0 + c < k;
+        const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + c;
+        cp_async4(as + r * LD + c, in ? src : a, in);
+      }
+      for (int e = tid; e < KC; e += NT) {
+        const bool in = k0 + e < k;
+        cp_async4(ws + e, in ? w2 + k0 + e : w2, in);
+      }
     }
-    if (tid < FKC) w_s[tid] = (k0 + tid < k) ? w2[k0 + tid] : 0.f;
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[TM][TN], d[TM];
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    d[m] = 0.f;
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
+  }
+
+  stage(0, 0);
+  for (int k0 = 0, buf = 0; k0 < k; k0 += KC, buf ^= 1) {
+    if (k0 + KC < k) {
+      stage(buf ^ 1, k0 + KC);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
-#pragma unroll 16
-    for (int c = 0; c < FKC; ++c) {
-      acc = fmaf(w_s[c], fmaxf(a_s[ty][c] + b_s[tx][c], 0.f), acc);
+    const float* as = smem + buf * STAGE;
+    const float* bs = as + BM * LD;
+    const float* ws = bs + BN * LD;
+#pragma unroll
+    for (int kk = 0; kk < KG; kk += 4) {
+      const int c = s * KG + kk;
+      const float4 w4 = *reinterpret_cast<const float4*>(ws + c);
+      float4 a4[TM], b4[TN];
+#pragma unroll
+      for (int m = 0; m < TM; ++m) a4[m] = *reinterpret_cast<const float4*>(as + (ti + m * TI) * LD + c);
+#pragma unroll
+      for (int n = 0; n < TN; ++n) b4[n] = *reinterpret_cast<const float4*>(bs + (tj + n * TJ) * LD + c);
+      const float wq[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float aq = q == 0 ? a4[m].x : q == 1 ? a4[m].y : q == 2 ? a4[m].z : a4[m].w;
+#ifndef PAIRWISE_FWD_THREE_OPS
+          d[m] = fmaf(wq[q], aq, d[m]);
+#endif
+#pragma unroll
+          for (int n = 0; n < TN; ++n) {
+            const float bq = q == 0 ? b4[n].x : q == 1 ? b4[n].y : q == 2 ? b4[n].z : b4[n].w;
+#ifdef PAIRWISE_FWD_THREE_OPS
+            acc[m][n] = fmaf(wq[q], max_nan(aq + bq, 0.f), acc[m][n]);
+#else
+            acc[m][n] = fmaf(wq[q], max_nan(bq, -aq), acc[m][n]);
+#endif
+          }
+        }
+      }
     }
     __syncthreads();
   }
-  const int i = i0 + ty, j = j0 + tx;
-  if (i < n1 && j < n2) out[(size_t)i * n2 + j] = acc;
+
+  // each group's sums to shared memory, then every thread adds the S partials
+  // of its outputs in group order, adds b2 and stores along j
+  float* red = smem;
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+#pragma unroll
+    for (int n = 0; n < TN; ++n) red[(s * BM + ti + m * TI) * RS + tj + n * TJ] = acc[m][n] + d[m];
+  }
+  __syncthreads();
+  const float bias = b2 ? *b2 : 0.f;
+  for (int e = tid; e < BM * BN; e += NT) {
+    const int r = e / BN, c = e % BN, i = i0 + r, j = j0 + c;
+    if (i < n1 && j < n2) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < S; ++q) sum += red[(q * BM + r) * RS + c];
+      out[(size_t)i * n2 + j] = sum + bias;
+    }
+  }
 }
 
+// Which shape class serves (n1, n2): the one whose busiest SM has the least
+// work, ceil(blocks / 132) tiles of BM x BN outputs, weighted by the
+// instruction slots a triple costs in that class (its loads and d_i included:
+// per four columns TM + TN + 1 float4 loads, 8 TM TN max and FMA, 4 TM FMAs
+// for d_i). PAIRWISE_FWD_CONFIG (0, 1, 2) forces one for measurement.
+constexpr int SMS = 132;
+
+template <class T>
+long long fwd_cost(int n1, int n2) {
+  const long long blocks = (long long)((n1 + T::BM - 1) / T::BM) * ((n2 + T::BN - 1) / T::BN);
+  const long long slots = 8LL * T::TM * T::TN + 4 * T::TM + T::TM + T::TN + 1;  // per 4 k
+  return (blocks + SMS - 1) / SMS * T::BM * T::BN * slots / (T::TM * T::TN);
+}
+
+int fwd_plan(int n1, int n2) {
+#ifdef PAIRWISE_FWD_CONFIG
+  return PAIRWISE_FWD_CONFIG;
+#else
+  const long long cost[3] = {fwd_cost<FwdWide>(n1, n2), fwd_cost<FwdMid>(n1, n2),
+                             fwd_cost<FwdSplit>(n1, n2)};
+  return (int)(std::min_element(cost, cost + 3) - cost);
+#endif
+}
+
+template <class T>
+cudaError_t fwd_launch(const float* a, const float* b, const float* w2, const float* b2,
+                       float* out, int n1, int n2, int k, int vec, cudaStream_t s) {
+  const dim3 grid((n2 + T::BN - 1) / T::BN, (n1 + T::BM - 1) / T::BM);
+  pairwise_fwd_kernel<T><<<grid, T::NT, 0, s>>>(a, b, w2, b2, out, n1, n2, k, vec);
+  return cudaGetLastError();
+}
 
 constexpr int BK = 64;   // backward: k columns per block, two per lane (lane, lane + 32)
 constexpr int TI = 32;   // backward: i rows per block, all held by every thread
@@ -139,13 +308,6 @@ Plan plan(int n1, int n2, int k) {
   p.span = (stages + want - 1) / want * SJ;
   p.splits = (n2 + p.span - 1) / p.span;
   return p;
-}
-
-// 4-byte asynchronous copy from device to shared memory; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
 }
 
 // Block (column tile kt, i tile it, j part s). Writes
@@ -342,14 +504,26 @@ pairwise_finish_kernel(const float* __restrict__ pa, int a_parts, int n1,
 
 extern "C" {
 
-int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, float* out,
-                     int n1, int n2, int k, void* stream) {
-  const dim3 block(FT, FT);
-  const dim3 grid((n2 + FT - 1) / FT, (n1 + FT - 1) / FT);
-  fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a, b, w2, out,
-                                                                   n1, n2, k);
-  return static_cast<int>(cudaGetLastError());
+// M (n1, n2) = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] from a (n1, k),
+// b (n2, k), w2 (k) and b2 (1, on the device; nullptr adds nothing): one launch.
+int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, const float* b2,
+                     float* out, int n1, int n2, int k, void* stream) {
+  if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = k % 4 == 0 && ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b) |
+                                  reinterpret_cast<size_t>(w2)) & 15) == 0;
+  cudaError_t err;
+  switch (fwd_plan(n1, n2)) {
+    case 0: err = fwd_launch<FwdWide>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    case 1: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    default: err = fwd_launch<FwdSplit>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+  }
+  return static_cast<int>(err);
 }
+
+// Which shape class `pairwise_mlp_fwd` launches at (n1, n2): 0 wide (32 x 32
+// tiles), 1 mid (32 x 16), 2 split (16 x 8, K split over 8 warps).
+int pairwise_mlp_fwd_plan(int n1, int n2) { return fwd_plan(n1, n2); }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
 // the S_B partials of each i tile, and each block's dw2 and db2 partials.

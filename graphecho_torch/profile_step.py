@@ -32,20 +32,23 @@ from graphecho_torch.train.trainer import Trainer
 
 RECIPES = {"camus": camus_echo_config, "cardiac": cardiac_uda_config}
 PVIG_BATCH = 32
-# the kernels of `csrc/pairwise_mlp.cu`; the last three are the names its
-# backward had before it became one entry point, so an older tree can be
-# profiled with this script too
-PAIRWISE_KERNELS = ("fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel",
-                    "bwd_da_kernel", "bwd_db_kernel", "finish_kernel")
+# the kernels of `csrc/pairwise_mlp.cu`; the last four are the names its
+# forward and backward had before, so an older tree can be profiled with this
+# script too
+PAIRWISE_KERNELS = ("pairwise_fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel",
+                    "fwd_kernel", "bwd_da_kernel", "bwd_db_kernel", "finish_kernel")
 
 
 def kernel_base_name(name: str) -> str:
     """The function name of a demangled kernel name: `fwd_kernel` of
     'void (anonymous namespace)::fwd_kernel(float const*, ...)',
-    `pairwise_bwd_kernel` of '... pairwise_bwd_kernel<true>(...)'; the name
-    itself where neither form matches."""
-    match = (re.search(r"::(\w+)\s*(?:<[^()]*>)?\(", name)
-             or re.match(r"void\s+(\w+)\s*(?:<[^()]*>)?\(", name))
+    `pairwise_bwd_kernel` of '... pairwise_bwd_kernel<true>(...)',
+    `pairwise_fwd_kernel` of '...::pairwise_fwd_kernel<(anonymous
+    namespace)::FwdTile<4, 4, 8, 8, 4, 16, 3> >(...)'; the name itself where
+    no form matches."""
+    bare = name.replace("(anonymous namespace)", "")
+    match = (re.search(r"::(\w+)\s*(?:<[^()]*>)?\(", bare)
+             or re.match(r"void\s+(\w+)\s*(?:<[^()]*>)?\(", bare))
     return match.group(1) if match else name
 
 
