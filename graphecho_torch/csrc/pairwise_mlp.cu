@@ -70,6 +70,7 @@
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -102,24 +103,34 @@ __device__ __forceinline__ float max_nan(float x, float y) {
 // BN = TN * TJ rows of j; its threads form S groups of TI x TJ, group s
 // taking columns [s * KG, (s + 1) * KG) of every staged chunk of KC = S * KG
 // columns of k; a thread holds TM x TN sums, rows ti + m * TI, columns
-// tj + n * TJ of the tile.
-template <int TM_, int TN_, int TI_, int TJ_, int S_, int KG_, int MINB_>
+// tj + n * TJ of the tile. NS chunks are in flight in a ring. With C > 1 a
+// thread-block cluster of C blocks shares the tile, block r taking the r-th
+// of C slices of k, and the blocks add their sums through distributed shared
+// memory.
+template <int TM_, int TN_, int TI_, int TJ_, int S_, int KG_, int NS_, int C_, int MINB_>
 struct FwdTile {
   static constexpr int TM = TM_, TN = TN_, TI = TI_, TJ = TJ_, S = S_, KG = KG_;
-  static constexpr int MINB = MINB_;
+  static constexpr int NS = NS_, C = C_, MINB = MINB_;
   static constexpr int BM = TM * TI, BN = TN * TJ, G = TI * TJ, NT = G * S;
   static constexpr int KC = S * KG;
   static constexpr int LD = KC + 4;  // row stride of a staged tile: rows fall on distinct banks
   static constexpr int STAGE = (BM + BN) * LD + KC;  // the a tile, the b tile, then w2
   static constexpr int RS = BN + 1;                  // row stride of the partial sums
-  static_assert(KG % 4 == 0 && TM * TN >= 1, "columns are read as float4");
-  static_assert(S * BM * RS <= 2 * STAGE, "the partial sums reuse the stages");
+  static constexpr int SMEM = NS * STAGE * 4;        // bytes of dynamic shared memory
+  // 16-byte copies: a thread copies column c = (tid % CPR) * 4 of rows
+  // tid / CPR + p * RSTEP, the same in every chunk
+  static constexpr int CPR = KC / 4, RSTEP = NT / CPR;
+  static_assert(KG % 4 == 0, "columns are read as float4");
+  static_assert(NT % CPR == 0 && BM % RSTEP == 0 && BN % RSTEP == 0 && CPR <= NT,
+                "every thread copies whole rows' shares");
+  static_assert(S * BM * RS <= NS * STAGE, "the partial sums reuse the stages");
 };
 
 // The shape classes the plan picks from (`fwd_plan`).
-using FwdWide = FwdTile<4, 4, 8, 8, 4, 16, 3>;   // 32 x 32 outputs, 256 threads
-using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 4>;    // 32 x 16 outputs, 128 threads
-using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 2>;  // 16 x 8 outputs, 256 threads, K in 8
+using FwdCluster = FwdTile<4, 4, 16, 16, 1, 64, 1, 8, 4>;  // 64 x 64 outputs, K in 8 blocks
+using FwdWide = FwdTile<4, 4, 8, 8, 4, 16, 3, 1, 2>;        // 32 x 32 outputs, 256 threads
+using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 3, 1, 4>;         // 32 x 16 outputs, 128 threads
+using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 3, 1, 2>;       // 16 x 8 outputs, K in 8 warps
 
 // M[i, j] = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] for one tile.
 // Each (i, j, k) is one NaN-keeping max and one FMA:
@@ -133,40 +144,57 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ w2, const float* __restrict__ b2,
                     float* __restrict__ out, int n1, int n2, int k, int vec) {
   constexpr int TM = T::TM, TN = T::TN, TI = T::TI, TJ = T::TJ, S = T::S, KG = T::KG;
-  constexpr int BM = T::BM, BN = T::BN, NT = T::NT, KC = T::KC, LD = T::LD;
-  constexpr int STAGE = T::STAGE, RS = T::RS;
-  __shared__ __align__(16) float smem[2 * STAGE];
+  constexpr int BM = T::BM, BN = T::BN, NT = T::NT, KC = T::KC, LD = T::LD, NS = T::NS;
+  constexpr int STAGE = T::STAGE, RS = T::RS, CPR = T::CPR, RSTEP = T::RSTEP;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, s = tid / T::G, t = tid % T::G;
   const int ti = t / TJ, tj = t % TJ;
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  // this block's columns [kb, ke): all of k, or its cluster rank's slice
+  const int slice = T::C == 1 ? k : (k + 4 * T::C - 1) / (4 * T::C) * 4;
+  const int kb = T::C == 1 ? 0 : min(k, (int)blockIdx.z * slice), ke = min(k, kb + slice);
+
+  // this thread's 16-byte copies: rows r0 + p * RSTEP of each tile, column c
+  const int c = tid % CPR * 4, r0 = tid / CPR;
+  const float* a_src = a + (size_t)(i0 + r0) * k + c;
+  const float* b_src = b + (size_t)(j0 + r0) * k + c;
+  const size_t step = (size_t)RSTEP * k;
+  unsigned a_rows = 0, b_rows = 0;  // bit p: row r0 + p * RSTEP exists
+#pragma unroll
+  for (int p = 0; p < BM / RSTEP; ++p) a_rows |= (unsigned)(i0 + r0 + p * RSTEP < n1) << p;
+#pragma unroll
+  for (int p = 0; p < BN / RSTEP; ++p) b_rows |= (unsigned)(j0 + r0 + p * RSTEP < n2) << p;
 
   // copies columns k0.. of the a tile, the b tile and w2 into stage `buf`,
-  // zero past the edges (a zero of w2 adds nothing; masked rows are never stored)
+  // zero past the edges (a zero of w2 adds nothing; masked rows are never
+  // stored); a chunk at or past ke commits an empty group
   auto stage = [&](int buf, int k0) {
     float* as = smem + buf * STAGE;
-    float* ws = as + (BM + BN) * LD;
-    if (vec) {  // k % 4 == 0 and 16-byte aligned rows
-      for (int e = tid; e < (BM + BN) * (KC / 4); e += NT) {
-        const int r = e / (KC / 4), c = e % (KC / 4) * 4;
-        const int row = r < BM ? i0 + r : j0 + r - BM;
-        const bool in = (r < BM ? row < n1 : row < n2) && k0 + c < k;
-        const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + c;
-        cp_async16(as + r * LD + c, in ? src : a, in);
+    float* bs = as + BM * LD;
+    float* ws = bs + BN * LD;
+    if (k0 < ke && vec) {  // k % 4 == 0 and 16-byte aligned rows
+      const bool kin = k0 + c < ke;
+#pragma unroll
+      for (int p = 0; p < BM / RSTEP; ++p) {
+        const bool in = kin && (a_rows >> p & 1);
+        cp_async16(as + (r0 + p * RSTEP) * LD + c, in ? a_src + p * step + k0 : a, in);
       }
-      for (int e = tid; e < KC / 4; e += NT) {
-        const bool in = k0 + 4 * e < k;
-        cp_async16(ws + 4 * e, in ? w2 + k0 + 4 * e : w2, in);
+#pragma unroll
+      for (int p = 0; p < BN / RSTEP; ++p) {
+        const bool in = kin && (b_rows >> p & 1);
+        cp_async16(bs + (r0 + p * RSTEP) * LD + c, in ? b_src + p * step + k0 : b, in);
       }
-    } else {
+      if (tid < CPR) cp_async16(ws + 4 * tid, kin ? w2 + k0 + c : w2, kin);
+    } else if (k0 < ke) {  // 4-byte copies, any k and alignment
       for (int e = tid; e < (BM + BN) * KC; e += NT) {
-        const int r = e / KC, c = e % KC;
+        const int r = e / KC, col = e % KC;
         const int row = r < BM ? i0 + r : j0 + r - BM;
-        const bool in = (r < BM ? row < n1 : row < n2) && k0 + c < k;
-        const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + c;
-        cp_async4(as + r * LD + c, in ? src : a, in);
+        const bool in = (r < BM ? row < n1 : row < n2) && k0 + col < ke;
+        const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + col;
+        cp_async4(as + r * LD + col, in ? src : a, in);
       }
       for (int e = tid; e < KC; e += NT) {
-        const bool in = k0 + e < k;
+        const bool in = k0 + e < ke;
         cp_async4(ws + e, in ? w2 + k0 + e : w2, in);
       }
     }
@@ -181,27 +209,24 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
   }
 
-  stage(0, 0);
-  for (int k0 = 0, buf = 0; k0 < k; k0 += KC, buf ^= 1) {
-    if (k0 + KC < k) {
-      stage(buf ^ 1, k0 + KC);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
+#pragma unroll
+  for (int q = 0; q < NS - 1; ++q) stage(q, kb + q * KC);
+  for (int k0 = kb, buf = 0; k0 < ke; k0 += KC, buf = buf + 1 == NS ? 0 : buf + 1) {
+    stage(buf == 0 ? NS - 1 : buf - 1, k0 + (NS - 1) * KC);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 1));
     __syncthreads();
     const float* as = smem + buf * STAGE;
     const float* bs = as + BM * LD;
     const float* ws = bs + BN * LD;
 #pragma unroll
     for (int kk = 0; kk < KG; kk += 4) {
-      const int c = s * KG + kk;
-      const float4 w4 = *reinterpret_cast<const float4*>(ws + c);
+      const int col = s * KG + kk;
+      const float4 w4 = *reinterpret_cast<const float4*>(ws + col);
       float4 a4[TM], b4[TN];
 #pragma unroll
-      for (int m = 0; m < TM; ++m) a4[m] = *reinterpret_cast<const float4*>(as + (ti + m * TI) * LD + c);
+      for (int m = 0; m < TM; ++m) a4[m] = *reinterpret_cast<const float4*>(as + (ti + m * TI) * LD + col);
 #pragma unroll
-      for (int n = 0; n < TN; ++n) b4[n] = *reinterpret_cast<const float4*>(bs + (tj + n * TJ) * LD + c);
+      for (int n = 0; n < TN; ++n) b4[n] = *reinterpret_cast<const float4*>(bs + (tj + n * TJ) * LD + col);
       const float wq[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -226,56 +251,110 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     __syncthreads();
   }
 
-  // each group's sums to shared memory, then every thread adds the S partials
-  // of its outputs in group order, adds b2 and stores along j
+  // each group's sums to shared memory (the groups still in flight are
+  // empty), then every thread adds the S partials of its outputs in group
+  // order (and, in a cluster, of every block in rank order: block r takes the
+  // r-th of C slices of the tile's outputs), adds b2 and stores along j
   float* red = smem;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
 #pragma unroll
     for (int n = 0; n < TN; ++n) red[(s * BM + ti + m * TI) * RS + tj + n * TJ] = acc[m][n] + d[m];
   }
-  __syncthreads();
   const float bias = b2 ? *b2 : 0.f;
-  for (int e = tid; e < BM * BN; e += NT) {
-    const int r = e / BN, c = e % BN, i = i0 + r, j = j0 + c;
-    if (i < n1 && j < n2) {
-      float sum = 0.f;
+  if constexpr (T::C == 1) {
+    __syncthreads();
+    for (int e = tid; e < BM * BN; e += NT) {
+      const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
+      if (i < n1 && j < n2) {
+        float sum = 0.f;
 #pragma unroll
-      for (int q = 0; q < S; ++q) sum += red[(q * BM + r) * RS + c];
-      out[(size_t)i * n2 + j] = sum + bias;
+        for (int q = 0; q < S; ++q) sum += red[(q * BM + r) * RS + col];
+        out[(size_t)i * n2 + j] = sum + bias;
+      }
     }
+  } else {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    constexpr int SHARE = BM * BN / T::C;
+    static_assert(BM * BN % T::C == 0, "the cluster's blocks share the outputs evenly");
+    const int rank = (int)cluster.block_rank();
+    for (int e = rank * SHARE + tid; e < (rank + 1) * SHARE; e += NT) {
+      const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
+      if (i < n1 && j < n2) {
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < T::C; ++q) {
+          const float* part = cluster.map_shared_rank(red, q);
+#pragma unroll
+          for (int g = 0; g < S; ++g) sum += part[(g * BM + r) * RS + col];
+        }
+        out[(size_t)i * n2 + j] = sum + bias;
+      }
+    }
+    cluster.sync();  // no block leaves while another reads its shared memory
   }
 }
 
-// Which shape class serves (n1, n2): the one whose busiest SM has the least
-// work, ceil(blocks / 132) tiles of BM x BN outputs, weighted by the
-// instruction slots a triple costs in that class (its loads and d_i included:
-// per four columns TM + TN + 1 float4 loads, 8 TM TN max and FMA, 4 TM FMAs
-// for d_i). PAIRWISE_FWD_CONFIG (0, 1, 2) forces one for measurement.
+// Which shape class serves (n1, n2, k): the one with the least estimated
+// time, in cycles of one SM: the busiest SM's instruction slots,
+// ceil(blocks / 132) blocks of BM x BN outputs and their slice of k, weighted
+// by the slots a triple costs in that class (per four columns TM + TN + 1
+// float4 loads, 8 TM TN max and FMA, 4 TM FMAs for d_i), over its 128 lanes,
+// plus the bytes every block stages from L2, (BM + BN) rows of k, at ~2 KB a
+// cycle for the card. PAIRWISE_FWD_CONFIG (0 to 3) forces one for measurement.
 constexpr int SMS = 132;
 
 template <class T>
-long long fwd_cost(int n1, int n2) {
-  const long long blocks = (long long)((n1 + T::BM - 1) / T::BM) * ((n2 + T::BN - 1) / T::BN);
+long long fwd_cost(int n1, int n2, int k) {
+  const long long tiles = (long long)((n1 + T::BM - 1) / T::BM) * ((n2 + T::BN - 1) / T::BN);
+  const long long blocks = tiles * T::C, slice = (k + T::C - 1) / T::C;
   const long long slots = 8LL * T::TM * T::TN + 4 * T::TM + T::TM + T::TN + 1;  // per 4 k
-  return (blocks + SMS - 1) / SMS * T::BM * T::BN * slots / (T::TM * T::TN);
+  const long long issue = (blocks + SMS - 1) / SMS * T::BM * T::BN * slice * slots /
+                          (4LL * T::TM * T::TN * 128);
+  const long long bytes = tiles * (T::BM + T::BN) * 4LL * k;
+  return issue + bytes / 2048;
 }
 
-int fwd_plan(int n1, int n2) {
+int fwd_plan(int n1, int n2, int k) {
 #ifdef PAIRWISE_FWD_CONFIG
   return PAIRWISE_FWD_CONFIG;
 #else
-  const long long cost[3] = {fwd_cost<FwdWide>(n1, n2), fwd_cost<FwdMid>(n1, n2),
-                             fwd_cost<FwdSplit>(n1, n2)};
-  return (int)(std::min_element(cost, cost + 3) - cost);
+  const long long cost[4] = {fwd_cost<FwdCluster>(n1, n2, k), fwd_cost<FwdWide>(n1, n2, k),
+                             fwd_cost<FwdMid>(n1, n2, k), fwd_cost<FwdSplit>(n1, n2, k)};
+  return (int)(std::min_element(cost, cost + 4) - cost);
 #endif
 }
 
 template <class T>
 cudaError_t fwd_launch(const float* a, const float* b, const float* w2, const float* b2,
                        float* out, int n1, int n2, int k, int vec, cudaStream_t s) {
-  const dim3 grid((n2 + T::BN - 1) / T::BN, (n1 + T::BM - 1) / T::BM);
-  pairwise_fwd_kernel<T><<<grid, T::NT, 0, s>>>(a, b, w2, b2, out, n1, n2, k, vec);
+  if (T::SMEM > 48 * 1024) {  // once per class, before its first launch
+    static const cudaError_t set = cudaFuncSetAttribute(
+        pairwise_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (set != cudaSuccess) return set;
+  }
+  const dim3 grid((n2 + T::BN - 1) / T::BN, (n1 + T::BM - 1) / T::BM, T::C);
+  if constexpr (T::C == 1) {
+    pairwise_fwd_kernel<T><<<grid, T::NT, T::SMEM, s>>>(a, b, w2, b2, out, n1, n2, k, vec);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(T::NT);
+    cfg.dynamicSmemBytes = T::SMEM;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = T::C;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, pairwise_fwd_kernel<T>, a, b, w2, b2, out,
+                                               n1, n2, k, vec);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -513,17 +592,19 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, const floa
   const int vec = k % 4 == 0 && ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b) |
                                   reinterpret_cast<size_t>(w2)) & 15) == 0;
   cudaError_t err;
-  switch (fwd_plan(n1, n2)) {
-    case 0: err = fwd_launch<FwdWide>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
-    case 1: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+  switch (fwd_plan(n1, n2, k)) {
+    case 0: err = fwd_launch<FwdCluster>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    case 1: err = fwd_launch<FwdWide>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    case 2: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
     default: err = fwd_launch<FwdSplit>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
   }
   return static_cast<int>(err);
 }
 
-// Which shape class `pairwise_mlp_fwd` launches at (n1, n2): 0 wide (32 x 32
-// tiles), 1 mid (32 x 16), 2 split (16 x 8, K split over 8 warps).
-int pairwise_mlp_fwd_plan(int n1, int n2) { return fwd_plan(n1, n2); }
+// Which shape class `pairwise_mlp_fwd` launches at (n1, n2, k): 0 cluster
+// (64 x 64 tiles, k split over a cluster of 8 blocks), 1 wide (32 x 32), 2 mid
+// (32 x 16), 3 split (16 x 8, k split over 8 warps).
+int pairwise_mlp_fwd_plan(int n1, int n2, int k) { return fwd_plan(n1, n2, k); }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,
 // the S_B partials of each i tile, and each block's dw2 and db2 partials.

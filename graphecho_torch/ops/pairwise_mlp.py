@@ -88,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pairwise_mlp_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.pairwise_mlp_fwd.restype = ctypes.c_int
-    lib.pairwise_mlp_fwd_plan.argtypes = [i, i]
+    lib.pairwise_mlp_fwd_plan.argtypes = [i, i, i]
     lib.pairwise_mlp_fwd_plan.restype = ctypes.c_int
     lib.pairwise_mlp_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.pairwise_mlp_bwd.restype = ctypes.c_int
