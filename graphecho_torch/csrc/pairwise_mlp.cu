@@ -70,7 +70,6 @@
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -103,14 +102,11 @@ __device__ __forceinline__ float max_nan(float x, float y) {
 // BN = TN * TJ rows of j; its threads form S groups of TI x TJ, group s
 // taking columns [s * KG, (s + 1) * KG) of every staged chunk of KC = S * KG
 // columns of k; a thread holds TM x TN sums, rows ti + m * TI, columns
-// tj + n * TJ of the tile. NS chunks are in flight in a ring. With C > 1 a
-// thread-block cluster of C blocks shares the tile, block r taking the r-th
-// of C slices of k, and the blocks add their sums through distributed shared
-// memory.
-template <int TM_, int TN_, int TI_, int TJ_, int S_, int KG_, int NS_, int C_, int MINB_>
+// tj + n * TJ of the tile. NS chunks are in flight in a ring.
+template <int TM_, int TN_, int TI_, int TJ_, int S_, int KG_, int NS_, int MINB_>
 struct FwdTile {
   static constexpr int TM = TM_, TN = TN_, TI = TI_, TJ = TJ_, S = S_, KG = KG_;
-  static constexpr int NS = NS_, C = C_, MINB = MINB_;
+  static constexpr int NS = NS_, MINB = MINB_;
   static constexpr int BM = TM * TI, BN = TN * TJ, G = TI * TJ, NT = G * S;
   static constexpr int KC = S * KG;
   static constexpr int LD = KC + 4;  // row stride of a staged tile: rows fall on distinct banks
@@ -118,19 +114,19 @@ struct FwdTile {
   static constexpr int RS = BN + 1;                  // row stride of the partial sums
   static constexpr int SMEM = NS * STAGE * 4;        // bytes of dynamic shared memory
   // 16-byte copies: a thread copies column c = (tid % CPR) * 4 of rows
-  // tid / CPR + p * RSTEP, the same in every chunk
+  // tid / CPR + p * RSTEP (p < PA of the a tile, p < PB of the b tile), the
+  // same in every chunk
   static constexpr int CPR = KC / 4, RSTEP = NT / CPR;
+  static constexpr int PA = (BM + RSTEP - 1) / RSTEP, PB = (BN + RSTEP - 1) / RSTEP;
   static_assert(KG % 4 == 0, "columns are read as float4");
-  static_assert(NT % CPR == 0 && BM % RSTEP == 0 && BN % RSTEP == 0 && CPR <= NT,
-                "every thread copies whole rows' shares");
+  static_assert(NT % CPR == 0 && PA <= 32 && PB <= 32, "copies of whole 16-byte columns");
   static_assert(S * BM * RS <= NS * STAGE, "the partial sums reuse the stages");
 };
 
 // The shape classes the plan picks from (`fwd_plan`).
-using FwdCluster = FwdTile<4, 4, 16, 16, 1, 64, 1, 8, 4>;  // 64 x 64 outputs, K in 8 blocks
-using FwdWide = FwdTile<4, 4, 8, 8, 4, 16, 3, 1, 2>;        // 32 x 32 outputs, 256 threads
-using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 3, 1, 4>;         // 32 x 16 outputs, 128 threads
-using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 3, 1, 2>;       // 16 x 8 outputs, K in 8 warps
+using FwdBig = FwdTile<6, 7, 8, 8, 4, 16, 3, 1>;    // 48 x 56 outputs, K in 4 warps
+using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 3, 4>;    // 32 x 16 outputs, K in 4 warps
+using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 3, 2>;  // 16 x 8 outputs, K in 8 warps
 
 // M[i, j] = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] for one tile.
 // Each (i, j, k) is one NaN-keeping max and one FMA:
@@ -150,51 +146,56 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int tid = threadIdx.x, s = tid / T::G, t = tid % T::G;
   const int ti = t / TJ, tj = t % TJ;
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  // this block's columns [kb, ke): all of k, or its cluster rank's slice
-  const int slice = T::C == 1 ? k : (k + 4 * T::C - 1) / (4 * T::C) * 4;
-  const int kb = T::C == 1 ? 0 : min(k, (int)blockIdx.z * slice), ke = min(k, kb + slice);
 
   // this thread's 16-byte copies: rows r0 + p * RSTEP of each tile, column c
   const int c = tid % CPR * 4, r0 = tid / CPR;
   const float* a_src = a + (size_t)(i0 + r0) * k + c;
   const float* b_src = b + (size_t)(j0 + r0) * k + c;
   const size_t step = (size_t)RSTEP * k;
-  unsigned a_rows = 0, b_rows = 0;  // bit p: row r0 + p * RSTEP exists
+  unsigned a_rows = 0, b_rows = 0;  // bit p: row r0 + p * RSTEP is in the tile and exists
 #pragma unroll
-  for (int p = 0; p < BM / RSTEP; ++p) a_rows |= (unsigned)(i0 + r0 + p * RSTEP < n1) << p;
+  for (int p = 0; p < T::PA; ++p) {
+    const int r = r0 + p * RSTEP;
+    a_rows |= (unsigned)(r < BM && i0 + r < n1) << p;
+  }
 #pragma unroll
-  for (int p = 0; p < BN / RSTEP; ++p) b_rows |= (unsigned)(j0 + r0 + p * RSTEP < n2) << p;
+  for (int p = 0; p < T::PB; ++p) {
+    const int r = r0 + p * RSTEP;
+    b_rows |= (unsigned)(r < BN && j0 + r < n2) << p;
+  }
 
   // copies columns k0.. of the a tile, the b tile and w2 into stage `buf`,
   // zero past the edges (a zero of w2 adds nothing; masked rows are never
-  // stored); a chunk at or past ke commits an empty group
+  // stored); a chunk at or past k commits an empty group
   auto stage = [&](int buf, int k0) {
     float* as = smem + buf * STAGE;
     float* bs = as + BM * LD;
     float* ws = bs + BN * LD;
-    if (k0 < ke && vec) {  // k % 4 == 0 and 16-byte aligned rows
-      const bool kin = k0 + c < ke;
+    if (k0 < k && vec) {  // k % 4 == 0 and 16-byte aligned rows
+      const bool kin = k0 + c < k;
 #pragma unroll
-      for (int p = 0; p < BM / RSTEP; ++p) {
+      for (int p = 0; p < T::PA; ++p) {
+        const int r = r0 + p * RSTEP;
         const bool in = kin && (a_rows >> p & 1);
-        cp_async16(as + (r0 + p * RSTEP) * LD + c, in ? a_src + p * step + k0 : a, in);
+        if (r < BM) cp_async16(as + r * LD + c, in ? a_src + p * step + k0 : a, in);
       }
 #pragma unroll
-      for (int p = 0; p < BN / RSTEP; ++p) {
+      for (int p = 0; p < T::PB; ++p) {
+        const int r = r0 + p * RSTEP;
         const bool in = kin && (b_rows >> p & 1);
-        cp_async16(bs + (r0 + p * RSTEP) * LD + c, in ? b_src + p * step + k0 : b, in);
+        if (r < BN) cp_async16(bs + r * LD + c, in ? b_src + p * step + k0 : b, in);
       }
       if (tid < CPR) cp_async16(ws + 4 * tid, kin ? w2 + k0 + c : w2, kin);
-    } else if (k0 < ke) {  // 4-byte copies, any k and alignment
+    } else if (k0 < k) {  // 4-byte copies, any k and alignment
       for (int e = tid; e < (BM + BN) * KC; e += NT) {
         const int r = e / KC, col = e % KC;
         const int row = r < BM ? i0 + r : j0 + r - BM;
-        const bool in = (r < BM ? row < n1 : row < n2) && k0 + col < ke;
+        const bool in = (r < BM ? row < n1 : row < n2) && k0 + col < k;
         const float* src = (r < BM ? a : b) + (size_t)row * k + k0 + col;
         cp_async4(as + r * LD + col, in ? src : a, in);
       }
       for (int e = tid; e < KC; e += NT) {
-        const bool in = k0 + e < ke;
+        const bool in = k0 + e < k;
         cp_async4(ws + e, in ? w2 + k0 + e : w2, in);
       }
     }
@@ -210,8 +211,8 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 
 #pragma unroll
-  for (int q = 0; q < NS - 1; ++q) stage(q, kb + q * KC);
-  for (int k0 = kb, buf = 0; k0 < ke; k0 += KC, buf = buf + 1 == NS ? 0 : buf + 1) {
+  for (int q = 0; q < NS - 1; ++q) stage(q, q * KC);
+  for (int k0 = 0, buf = 0; k0 < k; k0 += KC, buf = buf + 1 == NS ? 0 : buf + 1) {
     stage(buf == 0 ? NS - 1 : buf - 1, k0 + (NS - 1) * KC);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 1));
     __syncthreads();
@@ -253,47 +254,23 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   // each group's sums to shared memory (the groups still in flight are
   // empty), then every thread adds the S partials of its outputs in group
-  // order (and, in a cluster, of every block in rank order: block r takes the
-  // r-th of C slices of the tile's outputs), adds b2 and stores along j
+  // order, adds b2 and stores along j
   float* red = smem;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
 #pragma unroll
     for (int n = 0; n < TN; ++n) red[(s * BM + ti + m * TI) * RS + tj + n * TJ] = acc[m][n] + d[m];
   }
+  __syncthreads();
   const float bias = b2 ? *b2 : 0.f;
-  if constexpr (T::C == 1) {
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
-      if (i < n1 && j < n2) {
-        float sum = 0.f;
+  for (int e = tid; e < BM * BN; e += NT) {
+    const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
+    if (i < n1 && j < n2) {
+      float sum = 0.f;
 #pragma unroll
-        for (int q = 0; q < S; ++q) sum += red[(q * BM + r) * RS + col];
-        out[(size_t)i * n2 + j] = sum + bias;
-      }
+      for (int q = 0; q < S; ++q) sum += red[(q * BM + r) * RS + col];
+      out[(size_t)i * n2 + j] = sum + bias;
     }
-  } else {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    constexpr int SHARE = BM * BN / T::C;
-    static_assert(BM * BN % T::C == 0, "the cluster's blocks share the outputs evenly");
-    const int rank = (int)cluster.block_rank();
-    for (int e = rank * SHARE + tid; e < (rank + 1) * SHARE; e += NT) {
-      const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
-      if (i < n1 && j < n2) {
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < T::C; ++q) {
-          const float* part = cluster.map_shared_rank(red, q);
-#pragma unroll
-          for (int g = 0; g < S; ++g) sum += part[(g * BM + r) * RS + col];
-        }
-        out[(size_t)i * n2 + j] = sum + bias;
-      }
-    }
-    cluster.sync();  // no block leaves while another reads its shared memory
   }
 }
 
@@ -303,17 +280,16 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // by the slots a triple costs in that class (per four columns TM + TN + 1
 // float4 loads, 8 TM TN max and FMA, 4 TM FMAs for d_i), over its 128 lanes,
 // plus the bytes every block stages from L2, (BM + BN) rows of k, at ~2 KB a
-// cycle for the card. PAIRWISE_FWD_CONFIG (0 to 3) forces one for measurement.
+// cycle for the card. PAIRWISE_FWD_CONFIG (0 to 2) forces one for measurement.
 constexpr int SMS = 132;
 
 template <class T>
 long long fwd_cost(int n1, int n2, int k) {
-  const long long tiles = (long long)((n1 + T::BM - 1) / T::BM) * ((n2 + T::BN - 1) / T::BN);
-  const long long blocks = tiles * T::C, slice = (k + T::C - 1) / T::C;
+  const long long blocks = (long long)((n1 + T::BM - 1) / T::BM) * ((n2 + T::BN - 1) / T::BN);
   const long long slots = 8LL * T::TM * T::TN + 4 * T::TM + T::TM + T::TN + 1;  // per 4 k
-  const long long issue = (blocks + SMS - 1) / SMS * T::BM * T::BN * slice * slots /
+  const long long issue = (blocks + SMS - 1) / SMS * T::BM * T::BN * k * slots /
                           (4LL * T::TM * T::TN * 128);
-  const long long bytes = tiles * (T::BM + T::BN) * 4LL * k;
+  const long long bytes = blocks * (T::BM + T::BN) * 4LL * k;
   return issue + bytes / 2048;
 }
 
@@ -321,9 +297,9 @@ int fwd_plan(int n1, int n2, int k) {
 #ifdef PAIRWISE_FWD_CONFIG
   return PAIRWISE_FWD_CONFIG;
 #else
-  const long long cost[4] = {fwd_cost<FwdCluster>(n1, n2, k), fwd_cost<FwdWide>(n1, n2, k),
-                             fwd_cost<FwdMid>(n1, n2, k), fwd_cost<FwdSplit>(n1, n2, k)};
-  return (int)(std::min_element(cost, cost + 4) - cost);
+  const long long cost[3] = {fwd_cost<FwdBig>(n1, n2, k), fwd_cost<FwdMid>(n1, n2, k),
+                             fwd_cost<FwdSplit>(n1, n2, k)};
+  return (int)(std::min_element(cost, cost + 3) - cost);
 #endif
 }
 
@@ -335,26 +311,8 @@ cudaError_t fwd_launch(const float* a, const float* b, const float* w2, const fl
         pairwise_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (set != cudaSuccess) return set;
   }
-  const dim3 grid((n2 + T::BN - 1) / T::BN, (n1 + T::BM - 1) / T::BM, T::C);
-  if constexpr (T::C == 1) {
-    pairwise_fwd_kernel<T><<<grid, T::NT, T::SMEM, s>>>(a, b, w2, b2, out, n1, n2, k, vec);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(T::NT);
-    cfg.dynamicSmemBytes = T::SMEM;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = T::C;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, pairwise_fwd_kernel<T>, a, b, w2, b2, out,
-                                               n1, n2, k, vec);
-    if (err != cudaSuccess) return err;
-  }
+  const dim3 grid((n2 + T::BN - 1) / T::BN, (n1 + T::BM - 1) / T::BM);
+  pairwise_fwd_kernel<T><<<grid, T::NT, T::SMEM, s>>>(a, b, w2, b2, out, n1, n2, k, vec);
   return cudaGetLastError();
 }
 
@@ -593,17 +551,15 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, const floa
                                   reinterpret_cast<size_t>(w2)) & 15) == 0;
   cudaError_t err;
   switch (fwd_plan(n1, n2, k)) {
-    case 0: err = fwd_launch<FwdCluster>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
-    case 1: err = fwd_launch<FwdWide>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
-    case 2: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    case 0: err = fwd_launch<FwdBig>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
+    case 1: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
     default: err = fwd_launch<FwdSplit>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
   }
   return static_cast<int>(err);
 }
 
-// Which shape class `pairwise_mlp_fwd` launches at (n1, n2, k): 0 cluster
-// (64 x 64 tiles, k split over a cluster of 8 blocks), 1 wide (32 x 32), 2 mid
-// (32 x 16), 3 split (16 x 8, k split over 8 warps).
+// Which shape class `pairwise_mlp_fwd` launches at (n1, n2, k): 0 big (48 x 56
+// tiles), 1 mid (32 x 16), 2 split (16 x 8).
 int pairwise_mlp_fwd_plan(int n1, int n2, int k) { return fwd_plan(n1, n2, k); }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,

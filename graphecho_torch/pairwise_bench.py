@@ -7,8 +7,8 @@ other version of the file given with `--source`, all at once. The variants:
 for the backward, `no_triples`, the loop over (i, j, k) triples cut (staging,
 partial sums, epilogue and the finishing pass remain, so the difference
 estimates the loop); for the forward, `three_ops` (each triple an add, a max
-and an FMA, `PAIRWISE_FWD_THREE_OPS`) and `fwd_cluster`, `fwd_wide`,
-`fwd_mid`, `fwd_split` (one shape class forced, `PAIRWISE_FWD_CONFIG`).
+and an FMA, `PAIRWISE_FWD_THREE_OPS`) and `fwd_big`, `fwd_mid`,
+`fwd_split` (one shape class forced, `PAIRWISE_FWD_CONFIG`).
 
 Each version is timed through its C entry points, without the Python wrapper,
 at 112x112x512 (camus) and 560x560x512 (cardiac): `pairwise_mlp_bwd` and
@@ -58,10 +58,9 @@ TRIPLES = ("      for (int r = 0; r < TI; ++r) {\n        const float4 gv",
            "      for (int r = 0; r < 0; ++r) {\n        const float4 gv")
 # forward variants of this tree's file: the lines put in front of its text
 FWD_VARIANTS = {"three_ops": "#define PAIRWISE_FWD_THREE_OPS\n",
-                "fwd_cluster": "#define PAIRWISE_FWD_CONFIG 0\n",
-                "fwd_wide": "#define PAIRWISE_FWD_CONFIG 1\n",
-                "fwd_mid": "#define PAIRWISE_FWD_CONFIG 2\n",
-                "fwd_split": "#define PAIRWISE_FWD_CONFIG 3\n"}
+                "fwd_big": "#define PAIRWISE_FWD_CONFIG 0\n",
+                "fwd_mid": "#define PAIRWISE_FWD_CONFIG 1\n",
+                "fwd_split": "#define PAIRWISE_FWD_CONFIG 2\n"}
 # the backward entry point of a version that has only the older pair
 ADAPTER = """
 extern "C" long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
