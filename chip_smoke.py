@@ -293,9 +293,9 @@ def phase_kernels():
             same_b, diff_b = nan_pattern(x, w)
             bwd[name] = {"nan": int(torch.isnan(x).sum()), "plain_nan": int(torch.isnan(w).sum()),
                          "same_pattern": same_b, "max_abs_err_elsewhere": diff_b}
-        emit("kernel_nan", name="pairwise_mlp_fwd", shape=[n1, n2, k], nan=int(torch.isnan(got).sum()),
-             plain_nan=int(torch.isnan(want).sum()), same_pattern=same, max_abs_err_elsewhere=diff,
-             backward=bwd)
+        emit("kernel_nan", name="pairwise_mlp_fwd", shape=[n1, n2, k],
+             nan=int(torch.isnan(got).sum()), plain_nan=int(torch.isnan(want).sum()),
+             same_pattern=same, max_abs_err_elsewhere=diff, backward=bwd)
     torch.cuda.synchronize()
     return rows
 

@@ -1,6 +1,6 @@
 // Fused pairwise-MLP affinity, forward and backward, for Hopper (sm_90a).
 //
-//   M[i,j]  = sum_k w2[k] * relu(a[i,k] + b[j,k])          (+ b2 outside)
+//   M[i,j]  = sum_k w2[k] * relu(a[i,k] + b[j,k]) + b2
 //   dA[i,k] = w2[k] * S_A[i,k],   S_A[i,k] = sum_j g[i,j] * 1[a_ik + b_jk > 0]
 //   dB[j,k] = w2[k] * S_B[j,k],   S_B[j,k] = sum_i g[i,j] * 1[a_ik + b_jk > 0]
 //   dw2[k]  = sum_ij g[i,j] * relu(a_ik + b_jk)
@@ -9,9 +9,52 @@
 //
 // Replaces the Pallas TPU kernels of
 // graphecho_tpu/ops/pallas/pairwise_mlp_kernel.py: `_fwd_kernel` (via
-// `_forward`) with `fwd_kernel`, and both `_bwd_da_kernel` and
-// `_bwd_db_kernel` (via `_backward`) with the one backward entry point
-// `pairwise_mlp_bwd`: `pairwise_bwd_kernel`, then `pairwise_finish_kernel`.
+// `_forward`) with the entry point `pairwise_mlp_fwd` (`pairwise_fwd_kernel`),
+// and both `_bwd_da_kernel` and `_bwd_db_kernel` (via `_backward`) with the
+// one backward entry point `pairwise_mlp_bwd`: `pairwise_bwd_kernel`, then
+// `pairwise_finish_kernel`.
+//
+// What bounds the forward on an H100: FP32 operations off the tensor cores
+// (a max sits inside the sum). The function is 4 * N1 * N2 * K operations
+// (add, max, multiply, add): 9.6 us at 67 TFLOP/s at 560 x 560 x 512, against
+// 2.3 MB of inputs. Issued as instructions, the direct form is three a triple
+// (add, max, FMA): 3 * 160.6 M / (132 SMs * 128 lanes * 1.98 GHz) = 14.4 us.
+// This kernel issues two, by relu(a + b) = max(b, -a) + a (exact: a + b > 0
+// exactly when b > -a): M = sum_k w2 * max(b, -a) + d_i + b2 with
+// d_i = sum_k w2 * a_ik, one FMA per (i, k) of a thread; the negation folds
+// into the max (FMNMX.NAN with a negated operand). Issue floor 9.6 us.
+// `max.NaN` keeps a NaN of a or b, as jnp.maximum and torch.relu do (fmaxf
+// would drop it): a NaN in a[i, k] makes row i NaN, in b[j, k] column j.
+//
+// What the design does about it:
+//  * Register tiles. A thread holds TM x TN sums (6 x 7 or 2 x 2) and
+//    reads, per four columns of k, TM + TN + 1 float4 broadcasts from a
+//    k-contiguous stage (rows padded so a warp's rows fall on distinct banks):
+//    14 shared loads for 168 triples in the 6 x 7 class.
+//  * Staging by `cp.async`, 16 bytes a copy, in a ring of three k-chunks;
+//    each thread's copies are fixed rows and one column, so a chunk costs a
+//    few instructions a copy. Other k or alignments take 4-byte copies.
+//  * A per-shape plan (`fwd_plan`) picks the class with the less estimated
+//    time: the busiest SM's instruction slots plus the bytes every block
+//    stages from L2. Without the sums the kernel still takes 7.5 us at 560^2
+//    in the 48 x 56 class (25 MB staged from L2 at ~3.3 TB/s) and 15 us in the
+//    32 x 16 class (60 MB): the traffic, not the card's fill, set the tile.
+//    At 560^2 48 x 56 tiles give 120 blocks, one an SM; at 112^2 16 x 8 tiles
+//    give 98 blocks and k is split over the 8 warps of a block.
+//  * No atomics: the warps' partial sums meet in shared memory and are added
+//    in a fixed order, so repeats are bit-identical. b2 is read on the device
+//    and added in the same epilogue, which stores along j.
+//
+// Measured (`python -m graphecho_torch.pairwise_bench`, NVIDIA H100 80GB HBM3,
+// 700.00 W): 0.024 ms of device time at 560^2 and 0.0037 ms at 112^2, against
+// 0.066 and 0.013 ms for the one-output-a-thread kernel it replaces. Tried
+// and slower, in one call at 560^2 against 0.024 ms: 32 x 16 tiles (0.031),
+// 16 x 8 (0.041), the direct add, max and FMA (0.027), 56 x 56 (0.029),
+// 48 x 64 (0.027), 40 x 56 (0.037), the 48 x 56 class with 16 warps (0.026).
+// In other calls: 32 x 32 tiles with two or three blocks an SM (0.029-0.031,
+// spills at three); k split over a cluster of 8 blocks with 64 x 64 tiles,
+// the sums added in distributed shared memory (0.033 against 0.025 ms for
+// 32 x 16, commit 0ab5254: 0.013 ms without the sums).
 //
 // What bounds the backward on an H100: FP32 operations that cannot use the
 // tensor cores. Each (i, j, k) needs an add, a comparison and one
@@ -125,7 +168,6 @@ struct FwdTile {
 
 // The shape classes the plan picks from (`fwd_plan`).
 using FwdBig = FwdTile<6, 7, 8, 8, 4, 16, 3, 1>;    // 48 x 56 outputs, K in 4 warps
-using FwdMid = FwdTile<4, 4, 8, 4, 4, 16, 3, 4>;    // 32 x 16 outputs, K in 4 warps
 using FwdSplit = FwdTile<2, 2, 8, 4, 8, 16, 3, 2>;  // 16 x 8 outputs, K in 8 warps
 
 // M[i, j] = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] for one tile.
@@ -225,9 +267,11 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const float4 w4 = *reinterpret_cast<const float4*>(ws + col);
       float4 a4[TM], b4[TN];
 #pragma unroll
-      for (int m = 0; m < TM; ++m) a4[m] = *reinterpret_cast<const float4*>(as + (ti + m * TI) * LD + col);
+      for (int m = 0; m < TM; ++m)
+        a4[m] = *reinterpret_cast<const float4*>(as + (ti + m * TI) * LD + col);
 #pragma unroll
-      for (int n = 0; n < TN; ++n) b4[n] = *reinterpret_cast<const float4*>(bs + (tj + n * TJ) * LD + col);
+      for (int n = 0; n < TN; ++n)
+        b4[n] = *reinterpret_cast<const float4*>(bs + (tj + n * TJ) * LD + col);
       const float wq[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -262,7 +306,7 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (int n = 0; n < TN; ++n) red[(s * BM + ti + m * TI) * RS + tj + n * TJ] = acc[m][n] + d[m];
   }
   __syncthreads();
-  const float bias = b2 ? *b2 : 0.f;
+  const float bias = *b2;
   for (int e = tid; e < BM * BN; e += NT) {
     const int r = e / BN, col = e % BN, i = i0 + r, j = j0 + col;
     if (i < n1 && j < n2) {
@@ -276,11 +320,11 @@ pairwise_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // Which shape class serves (n1, n2, k): the one with the least estimated
 // time, in cycles of one SM: the busiest SM's instruction slots,
-// ceil(blocks / 132) blocks of BM x BN outputs and their slice of k, weighted
+// ceil(blocks / 132) blocks of BM x BN outputs over all of k, weighted
 // by the slots a triple costs in that class (per four columns TM + TN + 1
 // float4 loads, 8 TM TN max and FMA, 4 TM FMAs for d_i), over its 128 lanes,
 // plus the bytes every block stages from L2, (BM + BN) rows of k, at ~2 KB a
-// cycle for the card. PAIRWISE_FWD_CONFIG (0 to 2) forces one for measurement.
+// cycle for the card. PAIRWISE_FWD_CONFIG (0 or 1) forces one for measurement.
 constexpr int SMS = 132;
 
 template <class T>
@@ -297,9 +341,7 @@ int fwd_plan(int n1, int n2, int k) {
 #ifdef PAIRWISE_FWD_CONFIG
   return PAIRWISE_FWD_CONFIG;
 #else
-  const long long cost[3] = {fwd_cost<FwdBig>(n1, n2, k), fwd_cost<FwdMid>(n1, n2, k),
-                             fwd_cost<FwdSplit>(n1, n2, k)};
-  return (int)(std::min_element(cost, cost + 3) - cost);
+  return fwd_cost<FwdBig>(n1, n2, k) <= fwd_cost<FwdSplit>(n1, n2, k) ? 0 : 1;
 #endif
 }
 
@@ -542,7 +584,7 @@ pairwise_finish_kernel(const float* __restrict__ pa, int a_parts, int n1,
 extern "C" {
 
 // M (n1, n2) = sum_k w2[k] * relu(a[i, k] + b[j, k]) + b2[0] from a (n1, k),
-// b (n2, k), w2 (k) and b2 (1, on the device; nullptr adds nothing): one launch.
+// b (n2, k), w2 (k) and b2 (1, read on the device): one launch.
 int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, const float* b2,
                      float* out, int n1, int n2, int k, void* stream) {
   if (n1 < 1 || n2 < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -552,14 +594,13 @@ int pairwise_mlp_fwd(const float* a, const float* b, const float* w2, const floa
   cudaError_t err;
   switch (fwd_plan(n1, n2, k)) {
     case 0: err = fwd_launch<FwdBig>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
-    case 1: err = fwd_launch<FwdMid>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
     default: err = fwd_launch<FwdSplit>(a, b, w2, b2, out, n1, n2, k, vec, s); break;
   }
   return static_cast<int>(err);
 }
 
-// Which shape class `pairwise_mlp_fwd` launches at (n1, n2, k): 0 big (48 x 56
-// tiles), 1 mid (32 x 16), 2 split (16 x 8).
+// Which shape class `pairwise_mlp_fwd` launches at (n1, n2, k): 0 for 48 x 56
+// tiles, 1 for 16 x 8 tiles with k split over 8 warps.
 int pairwise_mlp_fwd_plan(int n1, int n2, int k) { return fwd_plan(n1, n2, k); }
 
 // Floats of scratch `pairwise_mlp_bwd` needs: the S_A partials of each j part,

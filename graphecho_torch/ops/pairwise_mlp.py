@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -127,20 +127,18 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def launch_fwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor,
-               b2: Optional[torch.Tensor] = None) -> torch.Tensor:
+def launch_fwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+               ) -> torch.Tensor:
     """(N1, N2) = Σ_k w2[k]·relu(a[i,k]+b[j,k]) + b2 on the card, in one
-    launch; `b2` is a one-element float32 tensor on the same card (read
-    there, never on the host), or None for no bias."""
+    launch; `b2` is a one-element float32 tensor on the same card, read
+    there and never on the host."""
     n1, n2, k = _check_inputs(a, b, w2)
-    if b2 is not None and (b2.get_device() != a.get_device() or b2.dtype != torch.float32
-                           or b2.numel() != 1):
+    if b2.get_device() != a.get_device() or b2.dtype != torch.float32 or b2.numel() != 1:
         raise ValueError("pairwise_mlp_fwd takes b2 as one float32 on the inputs' CUDA "
                          f"device, got {tuple(b2.shape)} {b2.dtype} on {b2.device}")
     out = a.new_empty((n1, n2))
-    err = _lib().pairwise_mlp_fwd(a.data_ptr(), b.data_ptr(), w2.data_ptr(),
-                                  None if b2 is None else b2.data_ptr(), out.data_ptr(),
-                                  n1, n2, k, _stream(a))
+    err = _lib().pairwise_mlp_fwd(a.data_ptr(), b.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                                  out.data_ptr(), n1, n2, k, _stream(a))
     cuda_build.check(err, "pairwise_mlp_fwd")
     LAUNCHES["pairwise_mlp_fwd"] += 1
     return out
@@ -168,7 +166,8 @@ def launch_bwd(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor, g: torch.Tens
 
 class PairwiseMLPFunction(torch.autograd.Function):
     """M = pairwise_mlp(a, b, w2) + b2 with the fused CUDA forward (b2 added
-    in its epilogue, one launch) and backward (the JAX package's `custom_vjp` around the Pallas kernels)."""
+    in its epilogue: one launch) and backward (the JAX package's `custom_vjp`
+    around the Pallas kernels)."""
 
     @staticmethod
     def forward(ctx, a, b, w2, b2):

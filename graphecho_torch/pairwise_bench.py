@@ -1,14 +1,15 @@
 """Where the pairwise-MLP kernels' time goes, at the paper's two shapes.
 
     python -m graphecho_torch.pairwise_bench [--source NAME=FILE.cu ...]
+    python -m graphecho_torch.pairwise_bench --wrapper-only
 
 Builds `csrc/pairwise_mlp.cu` as it is (`kernel`), variants of it, and any
 other version of the file given with `--source`, all at once. The variants:
 for the backward, `no_triples`, the loop over (i, j, k) triples cut (staging,
 partial sums, epilogue and the finishing pass remain, so the difference
 estimates the loop); for the forward, `three_ops` (each triple an add, a max
-and an FMA, `PAIRWISE_FWD_THREE_OPS`) and `fwd_big`, `fwd_mid`,
-`fwd_split` (one shape class forced, `PAIRWISE_FWD_CONFIG`).
+and an FMA, `PAIRWISE_FWD_THREE_OPS`) and `fwd_big`, `fwd_split`
+(one shape class forced, `PAIRWISE_FWD_CONFIG`).
 
 Each version is timed through its C entry points, without the Python wrapper,
 at 112x112x512 (camus) and 560x560x512 (cardiac): `pairwise_mlp_bwd` and
@@ -26,7 +27,11 @@ against the plain version first (largest abs error per output). Then
 `call_ms` is the median of 20 CUDA-event timings of one call that allocates
 the output and launches, as `chip_smoke.py` times a wrapper. Last, the host
 time of one `launch_bwd` and one `launch_fwd` call, and of each C entry point
-alone, at a shape too small to keep the card busy.
+alone, at a shape too small to keep the card busy; and the forward as the main
+path calls it, `PairwiseMLPFunction.apply` (b2 included), timed as
+`chip_smoke.py` times a wrapper at both shapes, with the host time of one call.
+`--wrapper-only` prints only that last line and builds nothing else, from the
+package it is run in: a copy of this file in an older tree measures that tree.
 Prints one JSON line per build (registers and spills from `ptxas -v`), per
 shape and direction and for the host times, and last the card's name and
 power limit. Needs a CUDA device and `nvcc`.
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import re
 import statistics
@@ -59,8 +65,7 @@ TRIPLES = ("      for (int r = 0; r < TI; ++r) {\n        const float4 gv",
 # forward variants of this tree's file: the lines put in front of its text
 FWD_VARIANTS = {"three_ops": "#define PAIRWISE_FWD_THREE_OPS\n",
                 "fwd_big": "#define PAIRWISE_FWD_CONFIG 0\n",
-                "fwd_mid": "#define PAIRWISE_FWD_CONFIG 1\n",
-                "fwd_split": "#define PAIRWISE_FWD_CONFIG 2\n"}
+                "fwd_split": "#define PAIRWISE_FWD_CONFIG 1\n"}
 # the backward entry point of a version that has only the older pair
 ADAPTER = """
 extern "C" long long pairwise_mlp_bwd_scratch_floats(int n1, int n2, int k) {
@@ -203,9 +208,10 @@ def host_us(call, calls: int = 500) -> float:
 
 
 def wrapper_host_us() -> Dict[str, float]:
-    """Host µs of one `launch_bwd` and one `launch_fwd` call, and of their C
-    entry points alone with the arguments made beforehand, at a shape too
-    small to keep the card busy (16 x 16 x 32)."""
+    """Host µs of one `launch_bwd` call, and of the backward's and the
+    forward's C entry points alone with the arguments made beforehand, at a
+    shape too small to keep the card busy (16 x 16 x 32); `function_numbers`
+    has `launch_fwd`'s."""
     a, b = torch.randn(16, 32, device="cuda"), torch.randn(16, 32, device="cuda")
     w2, g = torch.randn(32, device="cuda"), torch.randn(16, 16, device="cuda")
     b2 = torch.tensor(0.2, device="cuda")
@@ -221,8 +227,28 @@ def wrapper_host_us() -> Dict[str, float]:
     lib = pm._lib()
     return {"launch_bwd_host_us": host_us(lambda: pm.launch_bwd(a, b, w2, g)),
             "c_entry_host_us": host_us(lambda: lib.pairwise_mlp_bwd(*args)),
-            "launch_fwd_host_us": host_us(lambda: pm.launch_fwd(a, b, w2, b2)),
             "fwd_c_entry_host_us": host_us(lambda: lib.pairwise_mlp_fwd(*fwd_args))}
+
+
+def function_numbers() -> Dict:
+    """`PairwiseMLPFunction.apply(a, b, w2, b2)`, the forward the main path
+    calls: `call_ms` of one call at each shape, and the host µs of one call
+    and of one `launch_fwd` call (b2 passed where it takes it) at 16 x 16 x 32."""
+    out: Dict = {"function_ms": {}}
+    for n1, n2, k in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n1 + 2 * k)
+        a, b = (torch.randn(n, k, device="cuda", generator=gen) for n in (n1, n2))
+        w2, b2 = torch.randn(k, device="cuda", generator=gen), torch.tensor(0.2, device="cuda")
+        out["function_ms"][f"{n1}x{n2}x{k}"] = call_ms(
+            lambda: pm.PairwiseMLPFunction.apply(a, b, w2, b2))
+    a, b = torch.randn(16, 32, device="cuda"), torch.randn(16, 32, device="cuda")
+    w2, b2 = torch.randn(32, device="cuda"), torch.tensor(0.2, device="cuda")
+    out["function_host_us"] = host_us(lambda: pm.PairwiseMLPFunction.apply(a, b, w2, b2))
+    takes_b2 = "b2" in inspect.signature(pm.launch_fwd).parameters
+    out["launch_fwd_takes_b2"] = takes_b2
+    out["launch_fwd_host_us"] = host_us(
+        (lambda: pm.launch_fwd(a, b, w2, b2)) if takes_b2 else (lambda: pm.launch_fwd(a, b, w2)))
+    return out
 
 
 def bench_backward(libs, shape, stream) -> Dict:
@@ -286,10 +312,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--source", action="append", default=[], metavar="NAME=FILE.cu",
                         help="another version of csrc/pairwise_mlp.cu to time beside it")
+    parser.add_argument("--wrapper-only", action="store_true",
+                        help="time only the forward as the main path calls it")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("pairwise_bench needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.wrapper_only:
+        print(json.dumps(function_numbers()), flush=True)
+        print(nvidia_smi(), flush=True)
+        return
     sources = {}
     for item in args.source:
         name, path = item.split("=", 1)
@@ -315,9 +347,14 @@ def main() -> None:
             print(json.dumps(bench_backward(bwd, shape, stream)), flush=True)
             print(json.dumps(bench_forward(fwd, fwd_b2, shape, stream)), flush=True)
     print(json.dumps(wrapper_host_us()), flush=True)
+    print(json.dumps(function_numbers()), flush=True)
+    print(nvidia_smi(), flush=True)
+
+
+def nvidia_smi() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

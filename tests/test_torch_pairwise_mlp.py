@@ -57,6 +57,52 @@ def test_plain_forward_matches_jax_and_pallas_interpret(n1, n2, k):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas), atol=1e-4)
 
 
+def _nan_inputs(n1=70, n2=50, k=40):
+    """`_inputs` with NaN at a[5, 7] and b[n2 - 3, 11]."""
+    a, b, w2, b2, g = _inputs(n1, n2, k, seed=3)
+    a[5, 7] = np.nan
+    b[n2 - 3, 11] = np.nan
+    return a, b, w2, b2, g
+
+
+def test_plain_forward_keeps_nan_as_jax_and_pallas_interpret_do():
+    """A NaN in a[i, k] or b[j, k] makes row i or column j of the output NaN in
+    the XLA path (`jnp.maximum`), the Pallas kernel in interpret mode and the
+    port's plain version alike, and nothing else; the CUDA kernel is held to
+    the plain version's pattern on the card."""
+    a, b, w2, b2, _ = _nan_inputs()
+    got = pm.pairwise_mlp(*(torch.from_numpy(np.asarray(x)) for x in (a, b, w2, b2))).numpy()
+    want_xla = np.asarray(jax_pairwise_mlp(a, b, w2, b2))
+    want_pallas = np.asarray(pallas_pairwise_mlp(jnp.asarray(a), jnp.asarray(b), jnp.asarray(w2),
+                                                 jnp.asarray(b2), True))
+    nan = np.isnan(want_xla)
+    assert nan[5].all() and nan[:, 47].all() and nan.sum() == 70 + 50 - 1
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.isnan(want_pallas), nan)
+    np.testing.assert_allclose(got[~nan], want_xla[~nan], atol=1e-4)
+    np.testing.assert_allclose(got[~nan], want_pallas[~nan], atol=1e-4)
+
+
+def test_backward_formulas_keep_nan_as_jax_vjp_does():
+    """The same NaN input through the backward formulas that the CUDA backward
+    is held to on the card (chip_smoke's kernel_nan lines): NaN exactly where
+    `jax.vjp` of the XLA path has it (dw2 at columns 7 and 11; dA, dB and db2
+    finite, relu's mask being 0 at NaN), equal elsewhere within rtol/atol
+    1e-3. (Autograd of the plain version passes the gradient through a NaN,
+    torch's relu backward masking only t <= 0: ROADMAP.md, Queue 3.)"""
+    a, b, w2, b2, g = _nan_inputs()
+    _, vjp = jax.vjp(jax_pairwise_mlp, *(jnp.asarray(x) for x in (a, b, w2, b2)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    formulas = pm.pairwise_mlp_backward_reference(
+        *(torch.from_numpy(x) for x in (a, b, w2)), torch.from_numpy(g))
+    assert np.argwhere(np.isnan(want[2])).ravel().tolist() == [7, 11]
+    for name, f, w in zip(("dA", "dB", "dw2", "db2"), formulas, want):
+        got = f.numpy().reshape(w.shape)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(w), err_msg=name)
+        ok = ~np.isnan(w)
+        np.testing.assert_allclose(got[ok], w[ok], rtol=1e-3, atol=1e-3, err_msg=name)
+
+
 def _integer_inputs(n1, n2, k, seed=5):
     """a, b in [-4, 4] (many a+b exactly 0), w2 in [-2, 2], g in [-3, 3]:
     every sum is an integer below 2^24, so each version computes it exactly."""
@@ -119,9 +165,9 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    a, b, w2, _, g = (torch.from_numpy(np.asarray(x)) for x in _inputs(8, 8, 8))
+    a, b, w2, b2, g = (torch.from_numpy(np.asarray(x)) for x in _inputs(8, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        pm.launch_fwd(a, b, w2)
+        pm.launch_fwd(a, b, w2, b2)
     with pytest.raises(ValueError, match="CUDA"):
         pm.launch_bwd(a, b, w2, g)
 
@@ -138,6 +184,9 @@ _SOURCE = (Path(__file__).resolve().parent.parent / "graphecho_torch" / "csrc"
     ("void (anonymous namespace)::pairwise_bwd_kernel(float const*, float const*, "
      "float const*, float*, float*, float*, float*, int, int, int, int, int)",
      "pairwise_bwd_kernel"),
+    ("void (anonymous namespace)::pairwise_fwd_kernel<(anonymous namespace)::FwdTile<6, 7, 8, "
+     "8, 4, 16, 3, 1> >(float const*, float const*, float const*, float const*, float*, int, "
+     "int, int, int)", "pairwise_fwd_kernel"),
     ("void flash_fwd_kernel<Flash_fwd_kernel_traits<128, 64> >(Flash_fwd_params)",
      "flash_fwd_kernel"),
     ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD (Device -> Device)"),
@@ -148,11 +197,12 @@ def test_profile_step_reads_kernel_function_names(name, base):
 
 def test_profile_step_knows_every_pairwise_kernel():
     """`profile_step` counts the pairwise kernels by function name: every
-    `__global__` of csrc/pairwise_mlp.cu is in its list, and no other kernel of
-    the port's sources is."""
+    `__global__` of csrc/pairwise_mlp.cu is in its list, the older forward
+    `fwd_kernel` too (so an older tree can be profiled), and no other kernel
+    of the port's sources is."""
     names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)", _SOURCE)
-    assert set(names) == {"fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel"}
-    assert set(names) <= set(PAIRWISE_KERNELS)
+    assert set(names) == {"pairwise_fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel"}
+    assert set(names) | {"fwd_kernel"} <= set(PAIRWISE_KERNELS)
     knn = (Path(__file__).resolve().parent.parent / "graphecho_torch" / "csrc"
            / "knn.cu").read_text()
     knn_names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)", knn)
@@ -167,6 +217,35 @@ def test_pairwise_bench_adapts_only_the_older_interface():
     assert "pairwise_mlp_bwd_scratch_floats(" in adapted
     with pytest.raises(ValueError, match="no backward entry point"):
         pairwise_bench.with_entry_point("int pairwise_mlp_fwd(float* x) {}\n")
+
+
+_OLDER_FWD = ("extern \"C\" {\nint pairwise_mlp_fwd(const float* a, const float* b, "
+              "const float* w2, float* out,\n                     int n1, int n2, int k, "
+              "void* stream) {\n  return 0;\n}\n}\n")
+
+
+def test_pairwise_bench_adapts_only_the_older_forward():
+    """A forward that takes b2 is timed as it is; one without b2 is renamed and
+    called through an adapter with the new signature."""
+    assert pairwise_bench.adds_b2(_SOURCE)
+    assert pairwise_bench.with_fwd_entry_point(_SOURCE) == _SOURCE
+    assert not pairwise_bench.adds_b2(_OLDER_FWD)
+    adapted = pairwise_bench.with_fwd_entry_point(_OLDER_FWD)
+    assert "int pairwise_mlp_fwd_without_b2(const float* a" in adapted
+    assert adapted.endswith(pairwise_bench.FWD_ADAPTER)
+    assert re.search(r"int pairwise_mlp_fwd\(const float\* a, const float\* b, const float\* w2,"
+                     r"\s*const float\* b2", adapted)
+    with pytest.raises(ValueError, match="no forward entry point"):
+        pairwise_bench.with_fwd_entry_point("int pairwise_mlp_bwd(float* x) {}\n")
+
+
+def test_pairwise_bench_forward_variants_edit_only_their_head():
+    """Each forward variant is this tree's file behind one #define that the
+    source reads."""
+    for name, head in pairwise_bench.FWD_VARIANTS.items():
+        macro = head.split()[1]
+        assert head.startswith("#define ") and head.endswith("\n"), name
+        assert re.search(rf"#if(n?def| defined)?\s*\(?{macro}\b", _SOURCE), name
 
 
 def test_pairwise_bench_ablation_finds_its_edit_point():
