@@ -48,13 +48,14 @@
 // Measured (`python -m graphecho_torch.pairwise_bench`, NVIDIA H100 80GB HBM3,
 // 700.00 W): 0.024 ms of device time at 560^2 and 0.0037 ms at 112^2, against
 // 0.066 and 0.013 ms for the one-output-a-thread kernel it replaces. Tried
-// and slower, in one call at 560^2 against 0.024 ms: 32 x 16 tiles (0.031),
-// 16 x 8 (0.041), the direct add, max and FMA (0.027), 56 x 56 (0.029),
-// 48 x 64 (0.027), 40 x 56 (0.037), the 48 x 56 class with 16 warps (0.026).
-// In other calls: 32 x 32 tiles with two or three blocks an SM (0.029-0.031,
-// spills at three); k split over a cluster of 8 blocks with 64 x 64 tiles,
-// the sums added in distributed shared memory (0.033 against 0.025 ms for
-// 32 x 16, commit 0ab5254: 0.013 ms without the sums).
+// and slower at 560^2, each in one call against 0.024 ms: 32 x 16 tiles
+// (0.031, commit 92fb435), 16 x 8 (0.041), the direct add, max and FMA
+// (0.027), 56 x 56 (0.029), 48 x 64 (0.027), 40 x 56 (0.037), the 48 x 56
+// class with 16 warps (0.026); a 2-, 4- or 6-deep ring or 128-column chunks
+// gained nothing. Against 0.025 ms for 32 x 16: 32 x 32 tiles with two or
+// three blocks an SM (0.029-0.031, spills at three); k split over a cluster
+// of 8 blocks with 64 x 64 tiles, the sums added in distributed shared
+// memory (0.033, commit 0ab5254: 0.013 ms without the sums).
 //
 // What bounds the backward on an H100: FP32 operations that cannot use the
 // tensor cores. Each (i, j, k) needs an add, a comparison and one
