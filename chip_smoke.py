@@ -1,6 +1,7 @@
 """Smoke run of graphecho_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, drives the CAMUS->EchoNet and
-CardiacUDA train steps at full width, and runs the pvig_s ViG classifier.
+CardiacUDA train steps at full width, with every branch (temporal TGCN,
+64-frame cycle loss) too, and runs the pvig_s ViG classifier.
 
     python3 chip_smoke.py
 
@@ -24,11 +25,18 @@ Phases, each printing one JSON line:
   3b. knn: the kNN-graph kernel against its plain version at each pvig_s
      Grapher shape (batch 32, with the Grapher's relative-position bias), a
      ragged self graph without bias, a normalize=False case with k=45 and
-     a per-image bias, and the kernel's edges: k=1, k=64, M=k, and one query
-     of one image. Neighbours must equal the plain version's in order; a
-     position where they differ passes only as a near tie, the two picks'
-     distances recomputed in float64 within 1e-5. Two runs bit-identical;
-     times and bound as above;
+     a per-image bias, the kernel's edges: k=1, k=64, M=k, and one query
+     of one image, and the TGCN's frame-to-hidden-state graph (8 clips x 64
+     nodes x 64 keys x 256, k=9) on random keys and on the all-zero keys of
+     its first frame, where every distance ties and the neighbours must be
+     columns 0..8 in order with no allowance. Neighbours must equal the plain
+     version's in order; a position where they differ passes only as a near
+     tie, the two picks' distances recomputed in float64 within 1e-5. Two
+     runs bit-identical; times and bound as above. Then `knn_nan` lines: one
+     NaN feature in a query row and one in a key row at the TGCN's shape and
+     at Graphers 0-1 (with their bias): the NaN row takes columns 0..k-1 and
+     the NaN key is nobody's neighbour, as in the plain version, the other
+     rows within the near-tie rule;
   3c. knn ties: the kNN kernel on inputs whose distances are exact (one-hot
      and integer rows, all-zero rows with and without the Grapher's bias), key
      rows 3, 7 and 9 one row three times, and integer rows over 1,000 keys
@@ -37,12 +45,29 @@ Phases, each printing one JSON line:
      allowance, the copies of key 3 in column order;
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
+  4b. temporal reference: the same with the temporal branch (momentum-queue
+     TGCN) and the cycle loss on; the dropouts are the identity and both runs
+     take one cycle start, so every loss key, `temporal_graph_loss` and
+     `cyc_loss` included, must agree within rtol 1e-3, and the new queues
+     within 1e-4, moved in the batch's columns only; the kNN kernel runs on
+     the train path there (one launch a frame);
   5. camus: `train_camus_echo` with the paper's `camus_echo_config()`
      (ResNet50, 112², source batch 8, target batch 168, 112 nodes per class)
      for 3 steps and validation, launch counters zeroed just before and read
      just after; then steady-state step time and peak memory;
   6. cardiac: one step of `train_cardiac_uda` at full width (VGG16, 256²,
      five classes -> a 560x560 affinity), counted the same way;
+  6b. cardiac_full: one step and validation of `train_cardiac_uda(
+     temporal_graph=True, cyc_loss=True)` at full width (batch 8+8, clips 4+4
+     of 8 frames, one 64-frame cycle clip), counted the same way: 8 kNN
+     launches (one a frame) and 2 of each pairwise-MLP entry (two GModule
+     calls), every loss finite, `temporal_graph_loss` and `cyc_loss` not 0,
+     the queues moved in no column but those the batch's `update_idx_*` name
+     (in none: the paper's recipe has no clustering); then the steady step
+     time (median of 2) and peak memory;
+  6c. camus_temporal: one step of `train_camus_echo(temporal_graph=True)`
+     (112², target batch 168: the 4x4 pyramid level pooled up to the 8x8
+     grid), counted the same way;
   7. vig reference: a small DeepGCN on the card (kNN kernel) and on the CPU
      (plain kNN) from the same weights and images, logits within rtol 1e-3 /
      atol 1e-4;
@@ -51,7 +76,9 @@ Phases, each printing one JSON line:
      a cross-entropy at batch 32; the kNN launch counter zeroed before each
      forward and read after it (12 Graphers, 12 launches); steady eval
      images/s and peak memory.
-Then the `kernels` summary line, the nvidia-smi line, and last
+Then the `kernels` summary line, each kernel at the shape the cardiac_full
+path gives it (launches: per cardiac_full step, and in `launches_by_path` per
+path driven), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
 """
@@ -77,14 +104,17 @@ PEAK_BYTES = 3.35e12
 LOSS_KEYS = ("seg_loss", "dis_loss", "node_loss", "mat_loss_aff", "mat_loss_qu",
              "loss_adv_p2", "loss_adv_p3", "loss_adv_p4", "loss_adv_p5", "total_loss")
 KERNEL_SHAPES = ((112, 112, 512), (560, 560, 512), (70, 50, 40))
-MAIN_SHAPE = (112, 112, 512)  # what the camus main path gives the kernels
+# what the cardiac_full path gives the pairwise-MLP kernels (5 classes x 112 nodes)
+MAIN_SHAPE = (560, 560, 512)
 # what pvig_s's Graphers give the kNN kernel at batch 32: (Graphers, N queries,
 # M keys or None for a self graph, C, k * dilation)
 KNN_BATCH = 32
 KNN_SHAPES = (("0-1", 3136, 196, 80, 9), ("2-3", 784, 196, 160, 9),
               ("4-7", 196, None, 400, 18), ("8-9", 196, None, 400, 27),
               ("10-11", 49, None, 640, 27))
-KNN_MAIN = "0-1"
+# what the TGCN gives the kNN kernel per frame of a cardiac_full step: 2 x 4
+# clips, the 8x8 node grid against the hidden state, 256 channels, k 9
+TGCN_KNN = (8, 64, 64, 256, 9)
 KNN_TIE_TOL = 1e-5
 PVIG_S_PARAMS = 27_251_912
 
@@ -244,7 +274,7 @@ def phase_kernels():
                  errors=errs if name == "pairwise_mlp_bwd" else None, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, deterministic=True)
             if (n1, n2, k) == MAIN_SHAPE:
-                rows[name] = {"name": name, "route": "cuda",
+                rows[name] = {"name": name, "shape": [n1, n2, k], "route": "cuda",
                               "source": "graphecho_torch/csrc/pairwise_mlp.cu",
                               "replaces": replaces, "launches": 0, "max_abs_err": err,
                               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -314,7 +344,8 @@ def knn_work(b, n, m, c, k, self_graph, rel_numel):
 
 def phase_knn():
     """The kNN kernel against its plain version on the card; returns its row
-    of the `kernels` line at the Grapher 0-1 shape."""
+    of the `kernels` line at the TGCN's shape, the one the cardiac_full path
+    gives it."""
     from graphecho_torch.models.vig import relative_pos_buffer
     from graphecho_torch.ops import knn
 
@@ -325,13 +356,17 @@ def phase_knn():
               ("k=1", 4, 300, 196, 80, 1, True, "per-image"),
               ("k=64", 4, 300, 196, 80, 64, True, "per-image"),
               ("M=k", 4, 200, 27, 64, 27, True, None),
-              ("N=1, B=1", 1, 1, 196, 400, 18, True, "per-image")]
+              ("N=1, B=1", 1, 1, 196, 400, 18, True, "per-image"),
+              ("tgcn", *TGCN_KNN, True, None),
+              ("tgcn frame 0 (zero keys)", *TGCN_KNN, True, "zero keys")]
     row = None
     for i, (name, b, n, m, c, k, normalize, rel_kind) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
         scale = 1.0 if normalize else 0.1  # unnormalized rows: distances O(1)
         x = torch.randn(b, n, c, device="cuda", generator=gen) * scale
         y = None if m is None else torch.randn(b, m, c, device="cuda", generator=gen) * scale
+        if rel_kind == "zero keys":  # the TGCN's first hidden state
+            y.zero_()
         mm = n if m is None else m
         rel = None
         if rel_kind == "grapher":
@@ -349,6 +384,10 @@ def phase_knn():
         rows_differ, gap = knn.knn_tie_gap(x, y, rel, normalize, got, want)
         check(gap <= KNN_TIE_TOL, f"knn {name}: {rows_differ} rows differ from the plain "
                                   f"version, float64 distance gap {gap} > {KNN_TIE_TOL}")
+        if rel_kind == "zero keys":  # every distance ties: no near-tie allowance
+            check(rows_differ == 0 and bool(
+                (got == torch.arange(k, device="cuda", dtype=torch.int32)).all()),
+                f"knn {name}: not columns 0..{k - 1} in order in every row")
 
         def kernel():
             return knn.launch_knn(x, y, k, normalize, rel)
@@ -366,13 +405,50 @@ def phase_knn():
              relative_pos=None if rel is None else list(rel.shape), rows=b * n,
              rows_differ=rows_differ, max_tie_gap=gap, deterministic=deterministic, ms=ms,
              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if name == f"graphers {KNN_MAIN}":
-            row = {"name": "knn", "route": "cuda", "source": "graphecho_torch/csrc/knn.cu",
+        if name == "tgcn":
+            row = {"name": "knn", "shape": [b, n, mm, c, k],
+                   "route": "cuda", "source": "graphecho_torch/csrc/knn.cu",
                    "replaces": "graphecho_tpu/ops/pallas/knn_kernel.py:30", "launches": 0,
                    "max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
     torch.cuda.synchronize()
     return row
+
+
+def phase_knn_nan():
+    """One NaN feature in query row (0, 5) and one in key row (b - 1, 11), at
+    the TGCN's shape and at Graphers 0-1 with their bias: the NaN row must
+    take columns 0..k-1 and key 11 of the last image be nobody's neighbour,
+    as in the plain version; every other row within the near-tie rule."""
+    from graphecho_torch.models.vig import relative_pos_buffer
+    from graphecho_torch.ops import knn
+
+    for i, (name, b, n, m, c, k, grapher) in enumerate((("tgcn", *TGCN_KNN, False),
+                                                        ("graphers 0-1", 2, 3136, 196, 80, 9,
+                                                         True))):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = torch.randn(b, n, c, device="cuda", generator=gen)
+        y = torch.randn(b, m, c, device="cuda", generator=gen)
+        x[0, 5, 7] = float("nan")
+        y[b - 1, 11, 3] = float("nan")
+        rel = relative_pos_buffer(c, n, m, x.device) if grapher else None
+        got = knn.launch_knn(x, y, k, True, rel)
+        want = knn.knn_reference(x, y, k, True, rel)
+        first_k = torch.arange(k, device="cuda", dtype=torch.int32)
+        nan_row_ok = torch.equal(got[0, 5], first_k) and torch.equal(want[0, 5], first_k)
+        nan_key_used = int((got[b - 1] == 11).sum())
+        rows_differ, gap = knn.knn_tie_gap(x, y, rel, True, got, want)
+        emit("knn_nan", case=name, b=b, n=n, m=m, c=c, k=k,
+             relative_pos=None if rel is None else list(rel.shape), nan_row_first_k=nan_row_ok,
+             nan_key_neighbours=nan_key_used, plain_nan_key_neighbours=int(
+                 (want[b - 1] == 11).sum()), rows=b * n, rows_differ=rows_differ,
+             max_tie_gap=gap)
+        check(nan_row_ok, f"knn_nan {name}: the NaN row is {got[0, 5].tolist()}, "
+                          f"the plain version's {want[0, 5].tolist()}")
+        check(nan_key_used == 0, f"knn_nan {name}: the NaN key is a neighbour {nan_key_used} times")
+        check(gap <= KNN_TIE_TOL, f"knn_nan {name}: {rows_differ} rows differ from the plain "
+                                  f"version, float64 distance gap {gap}")
+    torch.cuda.synchronize()
 
 
 def knn_tie_inputs(kind: str, b: int, n: int, m, c: int, gen: torch.Generator,
@@ -520,6 +596,98 @@ def phase_reference():
     emit("reference", card=metrics["cuda"], cpu=metrics["cpu"], max_abs_diff=worst)
 
 
+def _temporal_batch(cfg, clip_len: int, seed: int = 11):
+    """`phase_reference`'s frames, one source and one target clip of the same
+    scene and one cycle clip, NHWC."""
+    rng = np.random.RandomState(seed)
+    hw = cfg.data.img_crop[0]
+    masks = np.zeros((2, hw, hw, 2), np.float32)
+    masks[:, 8:40, 8:40, 1] = 1.0
+    masks[..., 0] = 1.0 - masks[..., 1]
+    t = cfg.tgcn.clip_shape[0]
+
+    def frames(*lead):
+        return (rng.rand(*lead, hw, hw, 1) * 0.6).astype(np.float32)
+
+    return {"imgs_source": frames(2), "imgs_target": frames(2), "masks": masks,
+            "temp_imgs_source": frames(1, t), "temp_imgs_target": frames(1, t),
+            "temp_masks": np.repeat(masks[:1, None], t, axis=1),
+            "update_idx_source": np.array([2], np.int32),
+            "update_idx_target": np.array([5], np.int32), "cyc_imgs": frames(clip_len)}
+
+
+def _moved_columns(state, queues0):
+    """{domain: the queue columns that differ from `queues0`}."""
+    return {name: sorted(((getattr(state, f"queue_{name}").cpu() - q0.cpu()).abs().amax(dim=0)
+                          > 0).nonzero()[:, 0].tolist())
+            for name, q0 in zip(("source", "target"), queues0)}
+
+
+def phase_temporal_reference():
+    """One step of a small config with the temporal branch (momentum-queue
+    TGCN) and the cycle loss on the card (kernels) and on the CPU (plain
+    versions), from the same weights and batch: every loss key within rtol
+    1e-3. The dropouts are the identity and both runs take one cycle start,
+    since the card's and the CPU's generators draw different numbers; the
+    kNN kernel runs on the train path, once a frame."""
+    import dataclasses
+
+    from graphecho_torch import config as C
+    from graphecho_torch.models import attention
+    from graphecho_torch.ops import knn
+    from graphecho_torch.ops import pairwise_mlp as pm
+    from graphecho_torch.train import cycle
+    from graphecho_torch.train.state import create_train_state
+    from graphecho_torch.train.steps import build_models, make_train_step
+
+    base = _tiny_cfg()
+    cfg = dataclasses.replace(
+        base, train=dataclasses.replace(base.train, temporal_graph=True, cyc_loss=True),
+        tgcn=C.TGCNConfig(input_dim=32, hidden_dim=32, clip_shape=(4, 4, 4), knn_k=3,
+                          cluster_method="momentum_queue", queue_size=6, source_class=6,
+                          target_class=6))
+    batch = _temporal_batch(cfg, cfg.cycle.clip_length)
+    dropout, draw_starts = attention.dropout, cycle.draw_starts
+    attention.dropout = lambda x, *args, **kwargs: x
+    cycle.draw_starts = lambda generator, n, *args: torch.full((n,), 3, dtype=torch.long)
+    metrics, launches, queues, moved = {}, {}, {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, build_models(cfg), torch.device(dev))
+            with torch.no_grad():  # target pseudo-labels far from the 0.5 threshold
+                state.net.module.conv3.bias.copy_(torch.tensor([-8.0, 8.0]))
+            queues0 = (state.queue_source.clone(), state.queue_target.clone())
+            knn.reset_launch_counts()
+            pm.reset_launch_counts()
+            out = make_train_step(cfg)(state, batch)
+            metrics[dev] = {k: float(v) for k, v in out.items()}
+            launches[dev] = {**knn.LAUNCHES, **pm.LAUNCHES}
+            queues[dev] = (state.queue_source.cpu(), state.queue_target.cpu())
+            moved[dev] = _moved_columns(state, queues0)
+    finally:
+        attention.dropout, cycle.draw_starts = dropout, draw_starts
+    worst = 0.0
+    check(set(metrics["cpu"]) == set(metrics["cuda"]), "temporal reference: loss keys differ")
+    for key, want in metrics["cpu"].items():
+        got = metrics["cuda"][key]
+        check(math.isfinite(got) and abs(got - want) <= 1e-3 * abs(want) + 1e-5,
+              f"temporal reference {key}: card {got} vs CPU {want}")
+        worst = max(worst, abs(got - want))
+    for key in ("temporal_graph_loss", "cyc_loss", "tgcn_clustering_loss"):
+        check(metrics["cpu"][key] != 0, f"temporal reference: {key} is 0")
+    t = cfg.tgcn.clip_shape[0]
+    check(launches["cuda"] == {"knn": t, "pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2}
+          and not any(launches["cpu"].values()),
+          f"temporal reference launches: card {launches['cuda']}, CPU {launches['cpu']}")
+    # the momentum queues: moved in the batch's columns only, alike on both
+    check(moved["cuda"] == moved["cpu"] == {"source": [2], "target": [5]},
+          f"temporal reference: queue columns moved {moved}")
+    queue_diff = max((a - b).abs().max().item() for a, b in zip(queues["cuda"], queues["cpu"]))
+    check(queue_diff <= 1e-4, f"temporal reference: queues differ by {queue_diff}")
+    emit("temporal_reference", card=metrics["cuda"], cpu=metrics["cpu"], max_abs_diff=worst,
+         queue_max_abs_diff=queue_diff, launches=launches["cuda"])
+
+
 def _check_losses(means, what):
     for key in LOSS_KEYS:
         check(math.isfinite(means[key]), f"{what}: {key} = {means[key]}")
@@ -528,16 +696,18 @@ def _check_losses(means, what):
 def _drive(entry, **kwargs):
     """Run an entry point with the launch counters zeroed just before and read
     just after; returns (trainer, launches, seconds)."""
+    from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pm.reset_launch_counts()
+    knn.reset_launch_counts()
     t0 = time.perf_counter()
     trainer = entry(**kwargs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return trainer, dict(pm.LAUNCHES), seconds
+    return trainer, {**pm.LAUNCHES, **knn.LAUNCHES}, seconds
 
 
 def _steady_step_ms(trainer, n: int = 3) -> float:
@@ -566,7 +736,7 @@ def phase_main(card: str):
     dices = trainer.last_dices
     check(dices and all(math.isfinite(d) for d in dices.values()),
           f"camus dice {dices}")
-    check(all(n >= 3 for n in launches.values()),
+    check(launches["pairwise_mlp_fwd"] >= 3 and launches["pairwise_mlp_bwd"] >= 3,
           f"camus: fewer than 3 launches of a kernel in 3 steps: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = _steady_step_ms(trainer)
@@ -583,7 +753,8 @@ def phase_main(card: str):
     _check_losses(means, "cardiac")
     for key in LOSS_KEYS[1:5]:
         check(means[key] != 0.0, f"cardiac: {key} is 0, the graph head did not run")
-    check(all(n >= 1 for n in launches.values()), f"cardiac: a kernel never launched: {launches}")
+    check(launches["pairwise_mlp_fwd"] >= 1 and launches["pairwise_mlp_bwd"] >= 1,
+          f"cardiac: a kernel never launched: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = _steady_step_ms(trainer, n=2)
     check(all(math.isfinite(d) for d in trainer.last_dices.values()),
@@ -592,6 +763,74 @@ def phase_main(card: str):
          launches=launches, run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib,
          card=card, cfg="cardiac_uda_config()")
     return camus_launches
+
+
+def phase_full(card: str):
+    """cardiac_full and camus_temporal: the paper's recipes with every branch,
+    through the entry points at full width; returns cardiac_full's launches."""
+    from graphecho_torch import entrypoints
+    from graphecho_torch.config import cardiac_uda_config
+    from graphecho_torch.data.synthetic import SyntheticEchoData
+    from graphecho_torch.train.trainer import Trainer
+
+    # the queues as the trainer starts them (its weights come from cfg.train.seed)
+    start = Trainer(cardiac_uda_config(temporal_graph=True, cyc_loss=True))
+    start.init_state()
+    queues0 = (start.state.queue_source.clone(), start.state.queue_target.clone())
+    del start
+    trainer, launches, seconds = _drive(entrypoints.train_cardiac_uda, num_epochs=1,
+                                        steps_per_epoch=1, n_eval=2, temporal_graph=True,
+                                        cyc_loss=True)
+    cfg, means = trainer.cfg, trainer.last_epoch_metrics
+    _check_losses(means, "cardiac_full")
+    for key in (k for k in means if k.endswith("loss")):  # the tgcn_* and temp_* parts too
+        check(math.isfinite(means[key]), f"cardiac_full: {key} = {means[key]}")
+    check(means["temporal_graph_loss"] != 0 and means["cyc_loss"] != 0,
+          f"cardiac_full: temporal_graph_loss {means['temporal_graph_loss']}, "
+          f"cyc_loss {means['cyc_loss']}")
+    t = cfg.tgcn.clip_shape[0]
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+          f"cardiac_full: launches in one step {launches}, want 2, 2 and {t}")
+    # the batch the entry point drew (its data seed is 123): the queues move
+    # in no other columns than its update_idx_* name, and in those only with
+    # the momentum queue (the paper's recipe clusters with none)
+    batch = SyntheticEchoData(cfg, seed=123).train_batch()
+    moved = _moved_columns(trainer.state, queues0)
+    for name in moved:
+        idx = sorted(set(batch[f"update_idx_{name}"].tolist()))
+        check(moved[name] == (idx if cfg.tgcn.cluster_method == "momentum_queue" else []),
+              f"cardiac_full: queue_{name} moved in columns {moved[name]}, update_idx {idx}")
+    check(all(math.isfinite(d) for d in trainer.last_dices.values()),
+          f"cardiac_full dice {trainer.last_dices}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = _steady_step_ms(trainer, n=2)
+    emit("cardiac_full", losses={k: means[k] for k in means if k.endswith("loss")},
+         dice=trainer.last_dices, launches=launches, queue_columns_moved=moved,
+         run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
+         cfg="cardiac_uda_config(temporal_graph=True, cyc_loss=True)",
+         clips=list(batch["temp_imgs_source"].shape[:2]), cyc_frames=len(batch["cyc_imgs"]))
+    full_launches = launches
+    del trainer
+    torch.cuda.empty_cache()
+
+    trainer, launches, seconds = _drive(entrypoints.train_camus_echo, num_epochs=1,
+                                        steps_per_epoch=1, n_eval=2, temporal_graph=True)
+    means = trainer.last_epoch_metrics
+    _check_losses(means, "camus_temporal")
+    check(math.isfinite(means["temporal_graph_loss"]) and means["temporal_graph_loss"] != 0,
+          f"camus_temporal: temporal_graph_loss {means['temporal_graph_loss']}")
+    t = trainer.cfg.tgcn.clip_shape[0]
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+          f"camus_temporal: launches in one step {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = _steady_step_ms(trainer, n=2)
+    emit("camus_temporal", losses={k: means[k] for k in means if k.endswith("loss")},
+         dice=trainer.last_dices, launches=launches, run_seconds=seconds,
+         steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
+         cfg="camus_echo_config(temporal_graph=True)")
+    del trainer
+    torch.cuda.empty_cache()
+    return full_launches
 
 
 def phase_vig_reference():
@@ -709,14 +948,21 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     knn_row = phase_knn()
+    phase_knn_nan()
     phase_knn_ties()
     phase_reference()
-    launches = phase_main(card)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    phase_temporal_reference()
+    camus = phase_main(card)
+    full = phase_full(card)
     phase_vig_reference()
-    knn_row["launches"] = phase_vig(card)
+    pvig = phase_vig(card)
     rows["knn"] = knn_row
+    # launches per cardiac_full step, this slice's path; beside them each path's
+    for name, row in rows.items():
+        row["launches"] = full[name]
+        row["launches_by_path"] = {"cardiac_full step": full[name],
+                                   "camus 3 steps": camus[name]}
+    knn_row["launches_by_path"]["pvig_s forward"] = pvig
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

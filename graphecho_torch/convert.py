@@ -131,15 +131,28 @@ def vig_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Ten
     return out
 
 
+def tgcn_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's `models/tgcn.py::TGCN` from the flax TGCN's
+    `params`/`batch_stats`: the flax names, and `pos_embed` (T, 1, H, W, C)
+    as (T, 1, C, H, W). The LayerNorms of `node_dis` have no parameters."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, "", out)
+    _walk_stats(batch_stats, "", out)
+    out["pos_embed"] = out["pos_embed"].permute(0, 1, 4, 2, 3).contiguous()
+    return out
+
+
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, Any]:
     """Convert a JAX train state to the port's state dicts.
 
     `variables` holds any of the JAX `TrainState` fields as nested dicts of
     numpy arrays: `net_params` with `net_batch_stats`, `gmn_params`,
-    `dis_params` (level -> params), the seed banks `sr_seed`/`tg_seed`, and a
-    DeepGCN's `vig_params` with `vig_batch_stats`. Returns {"fpn": ...,
-    "gmodule": ..., "dis": {level: ...}, "sr_seed": ..., "tg_seed": ...,
-    "vig": ...} for the fields present."""
+    `dis_params` (level -> params), the seed banks `sr_seed`/`tg_seed`,
+    `tgcn_params` with `tgcn_batch_stats`, the momentum queues
+    `queue_source`/`queue_target`, and a DeepGCN's `vig_params` with
+    `vig_batch_stats`. Returns {"fpn": ..., "gmodule": ..., "dis": {level:
+    ...}, "tgcn": ..., "sr_seed": ..., "tg_seed": ..., "queue_source": ...,
+    "queue_target": ..., "vig": ...} for the fields present."""
     out: Dict[str, Any] = {}
     if "net_params" in variables:
         out["fpn"] = fpn_state_dict(variables["net_params"],
@@ -152,7 +165,10 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, Any]:
     if variables.get("vig_params") is not None:
         out["vig"] = vig_state_dict(variables["vig_params"],
                                     variables.get("vig_batch_stats", {}))
-    for seed in ("sr_seed", "tg_seed"):
-        if variables.get(seed) is not None:
-            out[seed] = _t(variables[seed])
+    if variables.get("tgcn_params") is not None:
+        out["tgcn"] = tgcn_state_dict(variables["tgcn_params"],
+                                      variables.get("tgcn_batch_stats", {}))
+    for name in ("sr_seed", "tg_seed", "queue_source", "queue_target"):
+        if variables.get(name) is not None:
+            out[name] = _t(variables[name])
     return out

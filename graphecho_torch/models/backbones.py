@@ -14,19 +14,51 @@ sizes [3, 4, 5, 3], not [3, 4, 6, 3] (`fpnseg.py:295`); the quirk is kept.
 which is not what `torch.nn.BatchNorm2d` computes: the running variance takes
 the BIASED batch variance (torch folds in the unbiased one). Momentum 0.1 here
 is flax's 0.9.
+
+With `remat`, each VGG block and each Bottleneck runs under
+`torch.utils.checkpoint` (the JAX package's per-block `nn.remat`): its
+activations are recomputed in the backward instead of kept. The recompute
+leaves the BatchNorm running stats alone, so they move once per forward as
+under flax's remat.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from graphecho_torch.models.initializers import set_init
 
 _VGG16_SPEC = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+_stats_frozen = False  # set while a checkpointed block is recomputed
+
+
+@contextlib.contextmanager
+def _frozen_running_stats():
+    global _stats_frozen
+    prev, _stats_frozen = _stats_frozen, True
+    try:
+        yield
+    finally:
+        _stats_frozen = prev
+
+
+def _recompute_contexts():
+    return contextlib.nullcontext(), _frozen_running_stats()
+
+
+def remat(block: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """`block(x)`, its activations recomputed in the backward; the recompute
+    does not fold BatchNorm statistics in a second time. Runs `block`
+    directly where no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return block(x)
+    return checkpoint(block, x, use_reentrant=False, context_fn=_recompute_contexts)
 
 
 class BatchNorm2d(nn.Module):
@@ -49,10 +81,11 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+        if not _stats_frozen:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
@@ -66,8 +99,10 @@ class VGG16(nn.Module):
     2/4/8/16/32. `block_spec` overrides (width, n_convs) per block."""
 
     def __init__(self, in_channels: int = 1,
-                 block_spec: Optional[Tuple[Tuple[int, int], ...]] = None):
+                 block_spec: Optional[Tuple[Tuple[int, int], ...]] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.block_spec = tuple(block_spec or _VGG16_SPEC)
         prev = in_channels
         for bi, (width, n_convs) in enumerate(self.block_spec):
@@ -87,7 +122,8 @@ class VGG16(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         feats = []
         for bi in range(len(self.block_spec)):
-            x = getattr(self, f"block_{bi + 1}")(x)
+            block = getattr(self, f"block_{bi + 1}")
+            x = remat(block, x) if self.remat else block(x)
             feats.append(x)
         return feats
 
@@ -124,8 +160,10 @@ class ResNet(nn.Module):
     """Bottleneck ResNet returning 5 levels: the post-maxpool stem (stride 4)
     and the 4 stage outputs (strides 4/8/16/32), `fpnseg.py:251-266`."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 5, 3), in_channels: int = 1):
+    def __init__(self, layers: Sequence[int] = (3, 4, 5, 3), in_channels: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = conv2d(in_channels, 64, 7, 2, 3, bias=False, init="he")
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
@@ -148,15 +186,16 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, 2, padding=1)
         feats = [x]
         for si in range(4):
-            x = getattr(self, f"layer{si + 1}")(x)
+            for block in getattr(self, f"layer{si + 1}"):
+                x = remat(block, x) if self.remat else block(x)
             feats.append(x)
         return feats
 
 
-def ResNet50(in_channels: int = 1) -> ResNet:
+def ResNet50(in_channels: int = 1, remat: bool = False) -> ResNet:
     """Reference `ResNet50` quirk: stage sizes [3,4,5,3] (`fpnseg.py:295`)."""
-    return ResNet((3, 4, 5, 3), in_channels)
+    return ResNet((3, 4, 5, 3), in_channels, remat)
 
 
-def ResNet101(in_channels: int = 1) -> ResNet:
-    return ResNet((3, 4, 23, 3), in_channels)
+def ResNet101(in_channels: int = 1, remat: bool = False) -> ResNet:
+    return ResNet((3, 4, 23, 3), in_channels, remat)

@@ -35,12 +35,13 @@ class FPN(nn.Module):
     def __init__(self, num_classes: int = 1, back_bone: str = "resnet",
                  fpn_channels: int = 256, semantic_channels: int = 128,
                  in_channels: int = 1,
-                 vgg_spec: Optional[Tuple[Tuple[int, int], ...]] = None):
+                 vgg_spec: Optional[Tuple[Tuple[int, int], ...]] = None,
+                 remat: bool = False):
         super().__init__()
         if back_bone == "resnet":
-            self.back_bone = ResNet50(in_channels)
+            self.back_bone = ResNet50(in_channels, remat=remat)
         elif back_bone == "VGG16":
-            self.back_bone = VGG16(in_channels, block_spec=vgg_spec)
+            self.back_bone = VGG16(in_channels, block_spec=vgg_spec, remat=remat)
         else:
             raise ValueError(f"unknown backbone {back_bone!r}")
         _, c2, c3, c4, c5 = self.back_bone.out_channels

@@ -35,6 +35,13 @@ def reset_launch_counts() -> None:
 
 
 # ----------------------------------------------------------------- plain version
+def _relu(t: torch.Tensor) -> torch.Tensor:
+    """relu, NaN kept, whose gradient is 1[t > 0] as `jax.nn.relu`'s is: 0
+    at NaN, where `torch.relu`'s backward (masking only t <= 0) lets it
+    through."""
+    return torch.where(t > 0, t, torch.relu(t.detach()))
+
+
 def pairwise_mlp(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, block: int = 128) -> torch.Tensor:
     """M[i,j] = sum_k w2[k]*relu(a[i,k]+b[j,k]) + b2, in plain PyTorch.
@@ -42,7 +49,7 @@ def pairwise_mlp(a: torch.Tensor, b: torch.Tensor, w2: torch.Tensor,
     a: (N1, K), b: (N2, K), w2: (K,), b2: scalar -> (N1, N2). Blocked over
     rows of `a` so the (block, N2, K) broadcast stays bounded, as the JAX
     package's XLA path is."""
-    rows = [torch.sum(torch.relu(a[s:s + block, None, :] + b[None, :, :]) * w2, dim=-1)
+    rows = [torch.sum(_relu(a[s:s + block, None, :] + b[None, :, :]) * w2, dim=-1)
             for s in range(0, a.shape[0], block)]
     return torch.cat(rows, dim=0) + b2
 

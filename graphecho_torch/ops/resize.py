@@ -30,3 +30,13 @@ def upsample_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Upsample `x` to `y`'s spatial size (bilinear, align-corners) and add —
     the FPN top-down merge (`fpnseg.py:371-388`)."""
     return resize_bilinear_align_corners(x, y.shape[-2], y.shape[-1]) + y
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """torch's adaptive average pool of an NCHW tensor, which the JAX package
+    writes as two bucket-matrix products (`adaptive_avg_pool2d`): bucket g
+    covers [floor(g*in/out), ceil((g+1)*in/out)), also where the output is
+    larger than the input (the camus 4x4 level pooled up to an 8x8 grid)."""
+    if x.shape[-2:] == (out_h, out_w):
+        return x
+    return F.adaptive_avg_pool2d(x, (out_h, out_w))

@@ -1,12 +1,17 @@
-"""Slack-padded log-domain Sinkhorn, port of
-`graphecho_tpu/ops/sinkhorn.py::sinkhorn_rpm` (reference
-`models/graph_matching.py:637-689`). A fixed number of row/column rounds, no
-early stop (the reference default `eps=-1` disables it too).
+"""Log-domain Sinkhorn, port of `graphecho_tpu/ops/sinkhorn.py`.
+
+  * `sinkhorn_rpm`: slack-padded normalization of a log score matrix
+    (reference `models/graph_matching.py:637-689`). A fixed number of
+    row/column rounds, no early stop (the reference default `eps=-1` disables
+    it too);
+  * `sinkhorn_distance`: the entropic OT cost between two point clouds with
+    uniform marginals (reference `utils/sinkhorn_distance.py:5-91`), the
+    TGCN's `sinkhorn_distance` transport.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,3 +53,38 @@ def sinkhorn_rpm(log_alpha: torch.Tensor, n_iters: int = 5, slack: bool = True,
     if col_mask is not None:
         out = torch.where(col_mask[:, None, :], out, _NEG_INF)
     return out
+
+
+def _cost_matrix(x: torch.Tensor, y: torch.Tensor, p: int = 2) -> torch.Tensor:
+    """|x_i - y_j|^p summed over features (reference `sinkhorn_distance.py:80-86`)."""
+    return torch.sum(torch.abs(x[..., :, None, :] - y[..., None, :, :]) ** p, dim=-1)
+
+
+def sinkhorn_distance(x: torch.Tensor, y: torch.Tensor, eps: float = 0.1,
+                      max_iter: int = 5, reduction: str = "none"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (..., P1, D), y: (..., P2, D), uniform marginals. Returns (cost,
+    transport plan pi, cost matrix C), the reference's contract
+    (`sinkhorn_distance.py:73`), after `max_iter` log-domain rounds."""
+    C = _cost_matrix(x, y)
+    p1, p2 = x.shape[-2], y.shape[-2]
+    # the reference's +1e-8 inside the log marginals
+    log_mu = torch.log(torch.full(C.shape[:-1], 1.0 / p1, dtype=C.dtype, device=C.device) + 1e-8)
+    log_nu = torch.log(torch.full(C.shape[:-2] + (p2,), 1.0 / p2, dtype=C.dtype,
+                                  device=C.device) + 1e-8)
+
+    def M(u, v):
+        return (-C + u[..., :, None] + v[..., None, :]) / eps
+
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(max_iter):
+        u = eps * (log_mu - torch.logsumexp(M(u, v), dim=-1)) + u
+        v = eps * (log_nu - torch.logsumexp(M(u, v).transpose(-2, -1), dim=-1)) + v
+
+    pi = torch.exp(M(u, v))
+    cost = torch.sum(pi * C, dim=(-2, -1))
+    if reduction == "mean":
+        cost = cost.mean()
+    elif reduction == "sum":
+        cost = cost.sum()
+    return cost, pi, C

@@ -3,12 +3,16 @@
     python -m graphecho_torch.profile_step --recipe camus --steps 5
 
 A step is one train step of a recipe's trainer at full width
-(`camus_echo_config()` or `cardiac_uda_config()`), or, for `--recipe pvig_s`,
+(`camus_echo_config()` or `cardiac_uda_config()`; `camus_temporal` and
+`cardiac_full` add the temporal branch, and the cycle loss to the latter, at
+batch 8 + 8), or, for `--recipe pvig_s`,
 one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
-and traces the same steps with `torch.profiler`. Prints one JSON object: the
-steady step time, the device's busy time per step (the union of its kernel
-intervals) and idle share, the number of kernel launches per step, the
+and traces the same steps with `torch.profiler`. `--remat` and `--fused-fpn`
+switch those model options on. Prints one JSON object: the steady step time,
+the peak device memory of the timed steps, the device's busy time per step
+(the union of its kernel intervals) and idle share, the number of kernel
+launches per step, the
 kNN-graph kernel's and the pairwise-MLP kernels' launches and device time per
 step, the host time in each phase of the step and the device time by kernel
 name. It needs a CUDA device and fails without one.
@@ -17,6 +21,7 @@ name. It needs a CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -25,12 +30,25 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from graphecho_torch.config import camus_echo_config, cardiac_uda_config
+from graphecho_torch.config import ExperimentConfig, camus_echo_config, cardiac_uda_config
 from graphecho_torch.data.synthetic import SyntheticEchoData
 from graphecho_torch.models.vig import pvig_s
 from graphecho_torch.train.trainer import Trainer
 
-RECIPES = {"camus": camus_echo_config, "cardiac": cardiac_uda_config}
+
+def _batch_8_8(cfg: ExperimentConfig) -> ExperimentConfig:
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=8,
+                                                             target_batch_mult=1))
+
+
+# the JAX package's profile recipes (`scripts/profile_train_step.py`): the
+# paper's configs, and their full branch sets at batch 8 + 8 (clips 4 + 4)
+RECIPES: Dict[str, Callable[[], ExperimentConfig]] = {
+    "camus": camus_echo_config,
+    "cardiac": cardiac_uda_config,
+    "camus_temporal": lambda: _batch_8_8(camus_echo_config(temporal_graph=True)),
+    "cardiac_full": lambda: _batch_8_8(cardiac_uda_config(temporal_graph=True, cyc_loss=True)),
+}
 PVIG_BATCH = 32
 # the kernels of `csrc/pairwise_mlp.cu`; the last four are the names its
 # forward and backward had before, so an older tree can be profiled with this
@@ -63,8 +81,9 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
-def _step_fn(recipe: str, n: int) -> Callable[[int], None]:
-    """Step i (< n) of the recipe, its inputs made beforehand."""
+def _step_fn(recipe: str, n: int, **model_options) -> Callable[[int], None]:
+    """Step i (< n) of the recipe, its inputs made beforehand; `model_options`
+    replace fields of its `ModelConfig` (remat, fused_fpn_forwards)."""
     if recipe == "pvig_s":
         model = pvig_s(n_classes=1000).eval()
         x = torch.randn(PVIG_BATCH, 3, 224, 224, device="cuda",
@@ -75,6 +94,7 @@ def _step_fn(recipe: str, n: int) -> Callable[[int], None]:
                 model(x)
         return forward
     cfg = RECIPES[recipe]()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_options))
     trainer = Trainer(cfg)
     trainer.init_state()
     data = SyntheticEchoData(cfg, seed=0)
@@ -82,14 +102,17 @@ def _step_fn(recipe: str, n: int) -> Callable[[int], None]:
     return lambda i: trainer._train_step(trainer.state, batches[i])
 
 
-def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict:
+def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
+            **model_options) -> Dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    step = _step_fn(recipe, warmup + steps)
+    step = _step_fn(recipe, warmup + steps, **model_options)
     for i in range(warmup):
         step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     host_ms = []
     for i in range(warmup, warmup + steps):
@@ -98,6 +121,8 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
         step(i)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
+
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -134,8 +159,11 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15) -> Dict
             n_pairwise += 1
             pairwise[name] = pairwise.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     return {
-        "recipe": recipe, "device": torch.cuda.get_device_name(0), "steps": steps,
+        "recipe": recipe, "model_options": model_options,
+        "device": torch.cuda.get_device_name(0), "steps": steps,
         "step_ms": statistics.median(host_ms), "step_ms_all": host_ms,
+        # the most device memory the timed steps held at once
+        "peak_memory_gib": peak_gib,
         "traced_step_ms": traced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / traced_ms),
         "kernel_launches_per_step": len(kernels) / steps,
@@ -157,8 +185,14 @@ def main() -> None:
     parser.add_argument("--recipe", choices=sorted(RECIPES) + ["pvig_s"], default="camus")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the backbone blocks' activations in the backward")
+    parser.add_argument("--fused-fpn", action="store_true",
+                        help="one FPN call over the source, target and clip frames")
     args = parser.parse_args()
-    print(json.dumps(profile(args.recipe, args.steps, args.warmup)), flush=True)
+    options = {k: True for k, on in (("remat", args.remat),
+                                     ("fused_fpn_forwards", args.fused_fpn)) if on}
+    print(json.dumps(profile(args.recipe, args.steps, args.warmup, **options)), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 One object holds everything a step reads and writes: the modules (their
 parameters and BatchNorm buffers), the per-component optimizers and their LR
-schedules, the seed banks, the generator the step draws its noise from, and
+schedules, the seed banks, the TGCN's momentum queues, the generator the step draws its noise from, and
 the step and epoch counters. Weights are drawn on the CPU from a generator
 seeded with `cfg.train.seed`, so a run starts from the same weights on any
 device, and then moved to the state's device.
@@ -55,9 +55,12 @@ class TrainState:
     sr_seed: Optional[torch.Tensor] = None
     tg_seed: Optional[torch.Tensor] = None
     dis: Optional[Component] = None  # module: ModuleDict level -> Discriminator
+    tgcn: Optional[Component] = None
+    queue_source: Optional[torch.Tensor] = None  # (hidden, K) momentum queues
+    queue_target: Optional[torch.Tensor] = None
 
     def components(self):
-        return [c for c in (self.net, self.gmn, self.dis) if c is not None]
+        return [c for c in (self.net, self.gmn, self.dis, self.tgcn) if c is not None]
 
     def load_converted(self, converted: Mapping[str, Any]) -> None:
         """Load the output of `graphecho_torch.convert.from_flax`."""
@@ -68,9 +71,11 @@ class TrainState:
         if "dis" in converted:
             for lvl, sd in converted["dis"].items():
                 self.dis.module[lvl].load_state_dict(sd)
-        for seed in ("sr_seed", "tg_seed"):
-            if seed in converted:
-                setattr(self, seed, converted[seed].to(self.device))
+        if "tgcn" in converted:
+            self.tgcn.module.load_state_dict(converted["tgcn"])
+        for name in ("sr_seed", "tg_seed", "queue_source", "queue_target"):
+            if name in converted:
+                setattr(self, name, converted[name].to(self.device))
 
 
 def create_train_state(cfg: ExperimentConfig, models: Dict[str, nn.Module],
@@ -94,6 +99,13 @@ def create_train_state(cfg: ExperimentConfig, models: Dict[str, nn.Module],
         kwargs["tg_seed"] = torch.randn(shape, generator=gen).to(device)
     if "discriminator" in models:
         kwargs["dis"] = component(models["discriminator"], t.dis)
+    if "tgcn" in models:
+        kwargs["tgcn"] = component(models["tgcn"], t.tgcn)
+        # random queues, each column L2-normalized (`TGCN.py:197-198`)
+        shape = (cfg.tgcn.hidden_dim, cfg.tgcn.queue_size)
+        for name in ("queue_source", "queue_target"):
+            q = torch.randn(shape, generator=gen)
+            kwargs[name] = (q / torch.linalg.vector_norm(q, dim=0, keepdim=True)).to(device)
     step_gen = torch.Generator(device=device)
     step_gen.manual_seed(int(torch.randint(2 ** 62, (1,), generator=gen)))
     return TrainState(step=0, epoch=0, generator=step_gen, device=device, **kwargs)

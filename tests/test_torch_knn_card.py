@@ -8,10 +8,14 @@ Random inputs: the kernel's neighbours equal the plain version's in order,
 and a position where they differ passes only as a near tie (float64 distance
 gap <= 1e-5). They cover the pvig shapes and the kernel's edges: k = 1 and
 64, M = k, one query of one image, C = 1 and 1024, and M = 1000 over several
-key tiles. Exact ties: inputs whose distances both compute exactly, where
-the order must equal the plain version's with no allowance, copies of one
-key in one tile and in different tiles, and a bias of signed zeros. Two runs
-are bit-identical. `tests/test_torch_knn.py` holds the same tie inputs to the JAX
+key tiles, and the TGCN's frame-to-hidden-state graph (8 x 64 x 64 x 256,
+k 9). Exact ties: inputs whose distances both compute exactly, where the
+order must equal the plain version's with no allowance, copies of one key in
+one tile and in different tiles, a bias of signed zeros, and the TGCN's
+first frame, whose hidden state (the keys) is all zeros. NaN: one NaN
+feature in a query row and one in a key row, at the TGCN's shape and a
+Grapher's, where the NaN query row takes columns 0..k-1 and the NaN key is
+never a neighbour, as in the plain version. Two runs are bit-identical. `tests/test_torch_knn.py` holds the same tie inputs to the JAX
 package on the CPU.
 """
 
@@ -129,6 +133,7 @@ def test_kernel_keeps_exact_ties_on_card(kind, b, n, m, c, k, copies):
     (2, 300, 196, 1, 9, False, 0),         # C = 1
     (2, 49, None, 1024, 27, True, 1),      # C = 1024, pvig_b's last stage
     (1, 300, 1000, 37, 16, True, 1),       # M = 1000: several key tiles
+    (8, 64, 64, 256, 9, True, 0),          # the TGCN: frame nodes to the hidden state
 ])
 def test_kernel_matches_plain_on_card(b, n, m, c, k, normalize, rel_batch):
     if not torch.cuda.is_available():
@@ -142,4 +147,43 @@ def test_kernel_matches_plain_on_card(b, n, m, c, k, normalize, rel_batch):
     assert torch.equal(got, tknn.launch_knn(x, y, k, normalize, rel))
     # positions that differ must be near ties in float64
     _, gap = tknn.knn_tie_gap(x, y, rel, normalize, got, want)
+    assert gap <= 1e-5
+
+
+def test_kernel_on_the_tgcn_first_frame_takes_the_first_k_keys():
+    """Frame 0 of the TGCN: the hidden state is all zeros, so every distance
+    of a row ties and the neighbours are columns 0..8 in order, exactly as
+    the plain version gives them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
+    x = torch.from_numpy(_nodes(8, 64, 256, 18)).cuda()
+    y = torch.zeros(8, 64, 256, device="cuda")
+    got = tknn.launch_knn(x, y, 9, True, None)
+    assert torch.equal(got, tknn.knn_reference(x, y, 9, True, None))
+    assert bool((got == torch.arange(9, device="cuda", dtype=torch.int32)).all())
+
+
+@pytest.mark.parametrize("b,n,m,c,k,grapher", [
+    (8, 64, 64, 256, 9, False),     # the TGCN's graph
+    (2, 3136, 196, 80, 9, True),    # pvig_s Graphers 0-1, with their bias
+])
+def test_kernel_on_nan_input_matches_plain_on_card(b, n, m, c, k, grapher):
+    """One NaN feature in query row (0, 5) and one in key row (b - 1, 11):
+    the NaN query row gets columns 0..k-1 and key 11 of the last image is
+    never a neighbour, as in the plain version (NaN sorts last, stably);
+    every other row within the near-tie rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the knn kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(_nodes(b, n, c, 19)).cuda()
+    y = torch.from_numpy(_nodes(b, m, c, 20)).cuda()
+    x[0, 5, 7] = float("nan")
+    y[b - 1, 11, 3] = float("nan")
+    rel = relative_pos_buffer(c, n, m, x.device) if grapher else None
+    got = tknn.launch_knn(x, y, k, True, rel)
+    want = tknn.knn_reference(x, y, k, True, rel)
+    assert torch.equal(got[0, 5], torch.arange(k, device="cuda", dtype=torch.int32))
+    assert torch.equal(got[0, 5], want[0, 5])
+    assert not bool((got[b - 1] == 11).any()) and not bool((want[b - 1] == 11).any())
+    _, gap = tknn.knn_tie_gap(x, y, rel, True, got, want)
     assert gap <= 1e-5

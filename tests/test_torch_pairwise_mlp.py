@@ -88,8 +88,8 @@ def test_backward_formulas_keep_nan_as_jax_vjp_does():
     is held to on the card (chip_smoke's kernel_nan lines): NaN exactly where
     `jax.vjp` of the XLA path has it (dw2 at columns 7 and 11; dA, dB and db2
     finite, relu's mask being 0 at NaN), equal elsewhere within rtol/atol
-    1e-3. (Autograd of the plain version passes the gradient through a NaN,
-    torch's relu backward masking only t <= 0: ROADMAP.md, Queue 3.)"""
+    1e-3. Autograd of the plain version is held to the same pattern in
+    `test_plain_autograd_keeps_nan_as_jax_vjp_does`."""
     a, b, w2, b2, g = _nan_inputs()
     _, vjp = jax.vjp(jax_pairwise_mlp, *(jnp.asarray(x) for x in (a, b, w2, b2)))
     want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
@@ -98,6 +98,26 @@ def test_backward_formulas_keep_nan_as_jax_vjp_does():
     assert np.argwhere(np.isnan(want[2])).ravel().tolist() == [7, 11]
     for name, f, w in zip(("dA", "dB", "dw2", "db2"), formulas, want):
         got = f.numpy().reshape(w.shape)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(w), err_msg=name)
+        ok = ~np.isnan(w)
+        np.testing.assert_allclose(got[ok], w[ok], rtol=1e-3, atol=1e-3, err_msg=name)
+
+
+def test_plain_autograd_keeps_nan_as_jax_vjp_does():
+    """Autograd of the plain version (the path of every CPU tensor) on the NaN
+    input: dA, dB and dw2 NaN exactly where `jax.vjp` of the XLA path has
+    them (its relu's gradient is 0 at NaN, as the port's is), equal elsewhere
+    within rtol/atol 1e-3."""
+    a, b, w2, b2, g = _nan_inputs()
+    _, vjp = jax.vjp(jax_pairwise_mlp, *(jnp.asarray(x) for x in (a, b, w2, b2)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    ta, tb, tw2, tb2 = (torch.tensor(np.asarray(x), requires_grad=True)
+                        for x in (a, b, w2, b2))
+    pm.pairwise_mlp(ta, tb, tw2, tb2).backward(torch.from_numpy(g))
+    for name, got, w in zip(("dA", "dB", "dw2"), (ta.grad, tb.grad, tw2.grad), want):
+        got = got.numpy()
+        report_parity(f"pairwise_mlp autograd {name} at NaN vs jax.vjp", got[~np.isnan(w)],
+                      w[~np.isnan(w)])
         np.testing.assert_array_equal(np.isnan(got), np.isnan(w), err_msg=name)
         ok = ~np.isnan(w)
         np.testing.assert_allclose(got[ok], w[ok], rtol=1e-3, atol=1e-3, err_msg=name)
