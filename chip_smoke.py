@@ -596,7 +596,7 @@ def phase_reference():
     emit("reference", card=metrics["cuda"], cpu=metrics["cpu"], max_abs_diff=worst)
 
 
-def _temporal_batch(cfg, clip_len: int, seed: int = 11):
+def _temporal_batch(cfg, seed: int = 11):
     """`phase_reference`'s frames, one source and one target clip of the same
     scene and one cycle clip, NHWC."""
     rng = np.random.RandomState(seed)
@@ -613,7 +613,8 @@ def _temporal_batch(cfg, clip_len: int, seed: int = 11):
             "temp_imgs_source": frames(1, t), "temp_imgs_target": frames(1, t),
             "temp_masks": np.repeat(masks[:1, None], t, axis=1),
             "update_idx_source": np.array([2], np.int32),
-            "update_idx_target": np.array([5], np.int32), "cyc_imgs": frames(clip_len)}
+            "update_idx_target": np.array([5], np.int32),
+            "cyc_imgs": frames(cfg.cycle.clip_length)}
 
 
 def _moved_columns(state, queues0):
@@ -646,7 +647,7 @@ def phase_temporal_reference():
         tgcn=C.TGCNConfig(input_dim=32, hidden_dim=32, clip_shape=(4, 4, 4), knn_k=3,
                           cluster_method="momentum_queue", queue_size=6, source_class=6,
                           target_class=6))
-    batch = _temporal_batch(cfg, cfg.cycle.clip_length)
+    batch = _temporal_batch(cfg)
     dropout, draw_starts = attention.dropout, cycle.draw_starts
     attention.dropout = lambda x, *args, **kwargs: x
     cycle.draw_starts = lambda generator, n, *args: torch.full((n,), 3, dtype=torch.long)

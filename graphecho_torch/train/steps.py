@@ -127,8 +127,8 @@ def make_train_step(cfg: ExperimentConfig
         losses: Dict[str, torch.Tensor] = {}
         extra: Dict[str, torch.Tensor] = {}  # reported, not summed
 
-        masks = to_nchw(batch["masks"], state.device)
         dev = state.device
+        masks = to_nchw(batch["masks"], dev)
         if t.temporal_graph:
             ts_clips, tt_clips = batch["temp_imgs_source"], batch["temp_imgs_target"]
             assert ts_clips.shape == tt_clips.shape, (
