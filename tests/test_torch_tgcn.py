@@ -255,7 +255,7 @@ def test_tgcn_dropout_keeps_nine_in_ten(monkeypatch):
     args = _port_args(*_tgcn_inputs())
     losses = [port(*args, generator=torch.Generator().manual_seed(s))[0]["node_dis_loss"]
               for s in (5, 5)]
-    assert float(losses[0]) == float(losses[1])
+    assert losses[0].item() == losses[1].item()
     # per forward: T mlp dropouts, the head's, and the attention's two
     assert len(calls) == 2 * (T + 3)
     kept = total = 0
