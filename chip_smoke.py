@@ -68,6 +68,24 @@ Phases, each printing one JSON line:
   6c. camus_temporal: one step of `train_camus_echo(temporal_graph=True)`
      (112², target batch 168: the 4x4 pyramid level pooled up to the 8x8
      grid), counted the same way;
+  6d. cardiac_real: the real-data trainer. A CardiacUDA-shaped tree of
+     `.nii.gz` volumes (Site_G, Site_R, Site_R_full; view 4; non-square
+     288x352 frames, 64 a volume; filled organ labels, contours for
+     Site_R_full) written with `data/formats.write_nifti`, indexed by
+     `python -m graphecho_torch.data.infos`. `real_training.run_cardiac_uda`
+     with the CLI's defaults (batch 8: 16 source frames, two steps an epoch)
+     and every branch, for two epochs, counted as above: 2, 2 and 8 launches
+     a step, every loss finite, `temporal_graph_loss` and `cyc_loss` not 0,
+     the three validation dices finite (the Site_R_full video test fills its
+     contours with `fill_poly`), the checkpoint tagged with the video test's
+     dice. Then a save and a restore into a fresh Trainer on the card, bit-equal
+     in every tensor and the CUDA generator, and one more step from each with
+     bit-equal losses. Then `python -m graphecho_torch.train_cardiac_uda`
+     as a subprocess, SIGTERMed at the end of epoch 0: it exits 0 with a
+     checkpoint at step 2 + 1; run again, it resumes from there and ends
+     three epochs later. Printed: the real-data step ms beside the synthetic
+     cardiac_full step of this run, the loader's wait per step, peak memory,
+     the checkpoint's size and its save and restore times;
   7. vig reference: a small DeepGCN on the card (kNN kernel) and on the CPU
      (plain kNN) from the same weights and images, logits within rtol 1e-3 /
      atol 1e-4;
@@ -78,7 +96,7 @@ Phases, each printing one JSON line:
      images/s and peak memory.
 Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
-path driven), the nvidia-smi line, and last
+path driven, `cardiac_real step` among them), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
 """
@@ -87,9 +105,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -117,6 +139,11 @@ KNN_SHAPES = (("0-1", 3136, 196, 80, 9), ("2-3", 784, 196, 160, 9),
 TGCN_KNN = (8, 64, 64, 256, 9)
 KNN_TIE_TOL = 1e-5
 PVIG_S_PARAMS = 27_251_912
+# the cardiac_real fixture: native frames (H, W, frames), non-square as real
+# CardiacUDA frames may be; patients per site (Site_G: 36 give 32 train ids,
+# two source batches of 16 an epoch)
+REAL_SHAPE = (288, 352, 64)
+REAL_PATIENTS = {"Site_G": 36, "Site_R": 4, "Site_R_full": 2}
 
 
 def check(ok: bool, what: str) -> None:
@@ -768,7 +795,8 @@ def phase_main(card: str):
 
 def phase_full(card: str):
     """cardiac_full and camus_temporal: the paper's recipes with every branch,
-    through the entry points at full width; returns cardiac_full's launches."""
+    through the entry points at full width; returns cardiac_full's launches
+    and steady step ms."""
     from graphecho_torch import entrypoints
     from graphecho_torch.config import cardiac_uda_config
     from graphecho_torch.data.synthetic import SyntheticEchoData
@@ -810,7 +838,7 @@ def phase_full(card: str):
          run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
          cfg="cardiac_uda_config(temporal_graph=True, cyc_loss=True)",
          clips=list(batch["temp_imgs_source"].shape[:2]), cyc_frames=len(batch["cyc_imgs"]))
-    full_launches = launches
+    full_launches, full_step_ms = launches, step_ms
     del trainer
     torch.cuda.empty_cache()
 
@@ -831,7 +859,237 @@ def phase_full(card: str):
          cfg="camus_echo_config(temporal_graph=True)")
     del trainer
     torch.cuda.empty_cache()
-    return full_launches
+    return full_launches, full_step_ms
+
+
+def _cardiac_volume(seed: int, contour: bool):
+    """One patient's view-4 video (H, W, frames) in uint8 and its labels:
+    four organs, one a quadrant, beating a little; smooth, so gzip is quick.
+    Labels are the filled organs, or their outlines where `contour`."""
+    rng = np.random.RandomState(seed)
+    h, w, t = REAL_SHAPE
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    centers = np.array([[0.3, 0.3], [0.3, 0.7], [0.7, 0.3], [0.7, 0.7]]) + rng.uniform(
+        -0.04, 0.04, (4, 2))
+    radii = rng.uniform(0.09, 0.15, (4, 2))
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    img = np.empty(REAL_SHAPE, np.uint8)
+    lab = np.zeros(REAL_SHAPE, np.uint8)
+    for f in range(t):
+        beat = 1 + 0.1 * np.sin(2 * np.pi * f / 32 + phase[0])
+        frame = 60 + 40 * np.sin(6 * x + phase[1] + 0.05 * f) * np.cos(5 * y + phase[2])
+        for c, ((cy, cx), (ry, rx)) in enumerate(zip(centers, radii), 1):
+            d = ((y - cy) / (ry * beat)) ** 2 + ((x - cx) / (rx * beat)) ** 2
+            inside = d <= 1
+            frame = np.where(inside, 140 + 20 * c, frame)
+            lab[..., f][inside & (d >= 0.8) if contour else inside] = c
+        img[..., f] = frame.astype(np.uint8)
+    return img, lab
+
+
+def write_cardiac_fixture(root: Path) -> Path:
+    """A CardiacUDA-shaped tree root/<site>/<patient>/<patient>_4[_gt].nii.gz
+    and its infos.npy, written by `python -m graphecho_torch.data.infos`."""
+    from graphecho_torch.data.formats import write_nifti
+
+    jobs = [(site, i) for site, n in REAL_PATIENTS.items() for i in range(n)]
+
+    def write(job):
+        site, i = job
+        pdir = root / site / f"patient{i:04d}"
+        pdir.mkdir(parents=True)
+        seed = 1000 * list(REAL_PATIENTS).index(site) + i
+        img, lab = _cardiac_volume(seed, contour=site == "Site_R_full")
+        write_nifti(str(pdir / f"patient{i:04d}_4.nii.gz"), img)
+        write_nifti(str(pdir / f"patient{i:04d}_4_gt.nii.gz"), lab)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, jobs))
+    infos = root / "infos.npy"
+    subprocess.run([sys.executable, "-m", "graphecho_torch.data.infos", "--root", str(root),
+                    "--out", str(infos)], cwd=ROOT, check=True, capture_output=True, timeout=120)
+    return infos
+
+
+def _loader_item_ms(root: Path, infos: Path) -> dict:
+    """Host ms of one item of each kind a cardiac_real step loads (16 source
+    and 8 target frames, 4 + 4 clips, one cycle clip), read one at a time,
+    and of reading one volume: where the loaders' time goes."""
+    from graphecho_torch.config import cardiac_uda_config
+    from graphecho_torch.data.cardiac_uda import SegCardiacUDADataset
+    from graphecho_torch.data.formats import read_nifti
+
+    cfg = cardiac_uda_config()
+    d = cfg.data
+    infos = np.load(infos, allow_pickle=True).item()
+    dims = dict(spatial_size=d.img_res[0], crop_size=d.img_crop[0], view_num=(d.view_num,))
+    kinds = {"frame": {},
+             "clip": dict(single_frame=False, clip_length=d.clip_length,
+                          total_length=d.total_length),
+             "cycle_clip": dict(single_frame=False, clip_length=cfg.cycle.clip_length,
+                                total_length=cfg.cycle.clip_length)}
+    out = {}
+    for name, kw in kinds.items():
+        ds = SegCardiacUDADataset(infos, str(root), is_train=True, set_select=("Site_G",),
+                                  **dims, **kw)
+        t0 = time.perf_counter()
+        for i in range(3):
+            ds[i]
+        out[name] = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    read_nifti(next(iter(infos.values()))["views_images"][d.view_num])
+    out["read_nifti_volume"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _state_tensors(state):
+    """Every tensor of a TrainState by name, and its counters."""
+    from graphecho_torch.train.checkpoint import COMPONENTS, TENSORS
+
+    out = {"step": state.step, "epoch": state.epoch, "generator": state.generator.get_state()}
+    for name in COMPONENTS:
+        comp = getattr(state, name)
+        if comp is not None:
+            out.update({f"{name}.{k}": v for k, v in comp.module.state_dict().items()})
+            for pid, st in comp.opt.state_dict()["state"].items():
+                out.update({f"{name}.opt.{pid}.{k}": v for k, v in st.items()})
+    out.update({name: getattr(state, name) for name in TENSORS if getattr(state, name) is not None})
+    return out
+
+
+def _bit_equal(a, b) -> list:
+    """The names whose values differ (tensors compared bit for bit, and on
+    their devices)."""
+    return [k for k in a if not (a[k].device == b[k].device and torch.equal(a[k], b[k])
+                                 if torch.is_tensor(a[k]) else a[k] == b[k])
+            ] + sorted(set(a) ^ set(b))
+
+
+def _run_cli(cmd, log: Path, stderr: Path, stop_after=None) -> int:
+    """Run the CLI to its end; with `stop_after`, SIGTERM it once its log
+    shows that text. Returns the exit code; the process never outlives this."""
+    with open(stderr, "ab") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=err, stderr=err)
+        try:
+            deadline = time.monotonic() + 600
+            while stop_after is not None and proc.poll() is None:
+                check(time.monotonic() < deadline, f"{stop_after!r} never showed in {log}")
+                if log.exists() and stop_after in log.read_text():
+                    proc.send_signal(signal.SIGTERM)
+                    break
+                time.sleep(0.05)
+            return proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_cardiac_real(card: str, synthetic_step_ms: float):
+    """The real-data trainer at full width on a CardiacUDA-shaped tree:
+    `run_cardiac_uda` with every branch, a save and restore on the card, and
+    a SIGTERMed and resumed CLI run; returns the launches per step."""
+    from graphecho_torch import real_training
+    from graphecho_torch import train_cardiac_uda as cli
+    from graphecho_torch.data.synthetic import SyntheticEchoData
+    from graphecho_torch.train.checkpoint import CheckpointManager
+    from graphecho_torch.train.trainer import Trainer
+
+    tmp = Path(tempfile.mkdtemp(prefix="cardiac_real_"))
+    try:
+        t0 = time.perf_counter()
+        root = tmp / "cardiac_uda"
+        infos = write_cardiac_fixture(root)
+        fixture_s = time.perf_counter() - t0
+        item_ms = _loader_item_ms(root, infos)
+        flags = ["--root", str(root), "--infos", str(infos), "--temporal-graph", "--cyc-loss"]
+
+        # one in-process run, counted: two epochs of two steps
+        args = cli.build_parser().parse_args(flags + ["--epochs", "2",
+                                                      "--save-dir", str(tmp / "run")])
+        trainer, launches, seconds = _drive(real_training.run_cardiac_uda, args=args)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps, spe = trainer.state.step, trainer.steps_per_epoch
+        check(spe == 2 and steps == 4, f"cardiac_real: {steps} steps, {spe} an epoch")
+        t = trainer.cfg.tgcn.clip_shape[0]
+        per_step = {k: v / steps for k, v in launches.items()}
+        check(per_step == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+              f"cardiac_real: launches {launches} in {steps} steps, want 2, 2 and {t} a step")
+        means = trainer.last_epoch_metrics
+        _check_losses(means, "cardiac_real")
+        for key in (k for k in means if k.endswith("loss")):
+            check(math.isfinite(means[key]), f"cardiac_real: {key} = {means[key]}")
+        check(means["temporal_graph_loss"] != 0 and means["cyc_loss"] != 0,
+              f"cardiac_real: temporal_graph_loss {means['temporal_graph_loss']}, "
+              f"cyc_loss {means['cyc_loss']}")
+        dices = trainer.last_dices
+        check(set(dices) == {"Inner-Val", "Target Domain - Test", "Target Domain - Video Test"}
+              and all(math.isfinite(d) for d in dices.values()), f"cardiac_real dice {dices}")
+        tags = trainer.ckpt.metrics()
+        check(trainer.ckpt.latest_step() == steps and tags["dice_metric"]
+              == "Target Domain - Video Test" and tags["dice"] == dices[tags["dice_metric"]],
+              f"cardiac_real: checkpoint {trainer.ckpt.latest_step()} tagged {tags}")
+
+        # a save and a restore into a fresh Trainer on the card
+        mgr = CheckpointManager(str(tmp / "card"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(steps, trainer.state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_mib = os.path.getsize(mgr.directory + f"/{steps}.pt") / 2 ** 20
+        fresh = Trainer(trainer.cfg, steps_per_epoch=spe)
+        fresh.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(fresh.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(fresh.state.generator.device.type == "cuda", "cardiac_real: generator not on CUDA")
+        want, got = _state_tensors(trainer.state), _state_tensors(fresh.state)
+        differ = _bit_equal(want, got)
+        check(not differ, f"cardiac_real: restored state differs in {differ[:5]}")
+        batch = SyntheticEchoData(trainer.cfg, seed=7).train_batch()
+        losses = [{k: v.item() for k, v in tr._train_step(tr.state, batch).items()}
+                  for tr in (trainer, fresh)]
+        check(losses[0] == losses[1], f"cardiac_real: a step after restore differs: {losses}")
+        del fresh, trainer
+        torch.cuda.empty_cache()
+
+        # a real preemption of the CLI, and its resume
+        cmd = [sys.executable, "-m", "graphecho_torch.train_cardiac_uda", *flags,
+               "--epochs", "3", "--save-dir", str(tmp / "cli"), "--log-dir", str(tmp / "log")]
+        log, out = tmp / "log" / "train.log", tmp / "cli.out"
+        t0 = time.perf_counter()
+        rc = _run_cli(cmd, log, out, stop_after="epoch 0 |")
+        check(rc == 0, f"cardiac_real: the SIGTERMed CLI exited {rc}: {out.read_text()[-2000:]}")
+        stopped = [int(line.rsplit("at step ", 1)[1].split(":")[0])
+                   for line in log.read_text().splitlines() if "preemption signal at step" in line]
+        cli_ckpt = CheckpointManager(str(tmp / "cli"))
+        check(stopped == [spe + 1] and cli_ckpt.latest_step() == spe + 1,
+              f"cardiac_real: stopped at {stopped}, latest checkpoint {cli_ckpt.latest_step()}")
+        n = stopped[0]
+        rc = _run_cli(cmd, log, out)
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"cardiac_real: the resumed CLI exited {rc}: {out.read_text()[-2000:]}")
+        check(f"resumed from checkpoint step {n}" in log.read_text(),
+              "cardiac_real: the second CLI run did not resume")
+        check(cli_ckpt.latest_step() == n + 3 * spe,
+              f"cardiac_real: resumed run ended at {cli_ckpt.latest_step()}, want {n + 3 * spe}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("cardiac_real", losses={k: means[k] for k in means if k.endswith("loss")}, dice=dices,
+         checkpoint_tags=tags, launches=launches, steps=steps, launches_per_step=per_step,
+         run_seconds=seconds, step_ms=means["step_seconds"] * 1e3,
+         loader_wait_ms=means["loader_wait_seconds"] * 1e3, loader_item_ms=item_ms,
+         synthetic_cardiac_full_step_ms=synthetic_step_ms, peak_memory_gib=peak_gib,
+         fixture={"frames": list(REAL_SHAPE), "patients": REAL_PATIENTS,
+                  "seconds": fixture_s},
+         checkpoint_mib=ckpt_mib, save_ms=save_ms, restore_ms=restore_ms,
+         restore_bit_equal=True, step_after_restore_equal=True,
+         preempted_at_step=n, resumed_to_step=n + 3 * spe, cli_seconds=cli_s, card=card,
+         cfg="train_cardiac_uda CLI defaults --temporal-graph --cyc-loss")
+    return {k: int(v) for k, v in per_step.items()}
 
 
 def phase_vig_reference():
@@ -954,7 +1212,8 @@ def main() -> int:
     phase_reference()
     phase_temporal_reference()
     camus = phase_main(card)
-    full = phase_full(card)
+    full, full_step_ms = phase_full(card)
+    real = phase_cardiac_real(card, full_step_ms)
     phase_vig_reference()
     pvig = phase_vig(card)
     rows["knn"] = knn_row
@@ -962,7 +1221,8 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = full[name]
         row["launches_by_path"] = {"cardiac_full step": full[name],
-                                   "camus 3 steps": camus[name]}
+                                   "camus 3 steps": camus[name],
+                                   "cardiac_real step": real[name]}
     knn_row["launches_by_path"]["pvig_s forward"] = pvig
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)

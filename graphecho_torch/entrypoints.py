@@ -6,7 +6,8 @@ reference's `python train_camus_echo.py` / `python train_cardiac_uda.py`
 the (synthetic) data, then run the epoch loop with per-epoch validation.
 They run on CUDA unless `device` names another device; with no GPU and no
 `device` they raise. `cfg` replaces the paper's configuration as a whole (the
-tests run a shrunken one).
+tests run a shrunken one). With `checkpoint_dir` a run saves its whole state
+after each epoch and resumes from the latest checkpoint there.
 """
 
 from __future__ import annotations

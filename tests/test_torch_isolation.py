@@ -1,6 +1,9 @@
 """The port stands alone: graphecho_torch and chip_smoke.py import neither JAX
 (nor flax, optax, orbax) nor anything of graphecho_tpu, and nothing of the
-port falls back to the CPU on its own."""
+port falls back to the CPU on its own. The GPU machine has no cv2, pandas,
+tensorboardX or nibabel: no port module imports one of them at module level
+(EchoNet's reader imports cv2 and pandas when it runs, the summary writer
+tensorboardX when it is there)."""
 
 import ast
 import subprocess
@@ -13,6 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "graphecho_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "graphecho_tpu")
+NOT_ON_THE_CARD = ("cv2", "pandas", "tensorboardX", "nibabel")
 
 
 def _modules():
@@ -31,6 +35,45 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_module_imports_without_the_packages_the_card_lacks():
+    """Each module imports with cv2, pandas, tensorboardX and nibabel made
+    unimportable, as on the GPU machine."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {NOT_ON_THE_CARD!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _module_level(tree):
+    """The statements that run at import: everything outside a function body."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        yield node
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_import_of_what_the_card_lacks(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _module_level(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in NOT_ON_THE_CARD, f"{path.name}:{node.lineno} {name}"
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
