@@ -1,7 +1,8 @@
 """Smoke run of graphecho_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, drives the CAMUS->EchoNet and
 CardiacUDA train steps at full width, with every branch (temporal TGCN,
-64-frame cycle loss) too, and runs the pvig_s ViG classifier.
+64-frame cycle loss) too, serves both trained models in bf16, f32 and int8,
+and runs the pvig_s ViG classifier.
 
     python3 chip_smoke.py
 
@@ -54,9 +55,10 @@ Phases, each printing one JSON line:
   5. camus: `train_camus_echo` with the paper's `camus_echo_config()`
      (ResNet50, 112², source batch 8, target batch 168, 112 nodes per class)
      for 3 steps and validation, launch counters zeroed just before and read
-     just after; then steady-state step time and peak memory;
+     just after; the trainer's state is saved for the serve phase; then
+     steady-state step time and peak memory;
   6. cardiac: one step of `train_cardiac_uda` at full width (VGG16, 256²,
-     five classes -> a 560x560 affinity), counted the same way;
+     five classes -> a 560x560 affinity), counted and saved the same way;
   6b. cardiac_full: one step and validation of `train_cardiac_uda(
      temporal_graph=True, cyc_loss=True)` at full width (batch 8+8, clips 4+4
      of 8 frames, one 64-frame cycle clip), counted the same way: 8 kNN
@@ -68,7 +70,24 @@ Phases, each printing one JSON line:
   6c. camus_temporal: one step of `train_camus_echo(temporal_graph=True)`
      (112², target batch 168: the 4x4 pyramid level pooled up to the 8x8
      grid), counted the same way;
-  6d. cardiac_real: the real-data trainer. A CardiacUDA-shaped tree of
+  6d. serve: the two saved states served by `serve.Predictor` at batch 256,
+     the launch counters zeroed before and read after (the serving path
+     launches no hand kernel: 0 of each). camus (ResNet50, 112², one class)
+     through `Predictor.from_checkpoint`: bf16, f32 and int8 Predictors on 300
+     frames (a ragged second batch), masks of the right shape, bf16 vs f32
+     and int8 vs both float masks agreeing on more than 98% of pixels; every
+     int8 layer's int32 accumulators from the `_int_mm` route equal to the
+     float64 plain route's bit for bit on one batch of 256; uint8 100x90
+     frames through the resize; an empty request; `predict_video` of 128
+     frames (split over the one card) equal to `predict` in bf16 and f32;
+     `export_compiled` -> `load_exported` masks equal to the live
+     Predictor's, bf16 and int8; a hot swap changes the masks and swapping
+     back restores them; the int8 Predictor refuses a swap. cardiac (VGG16,
+     256², five classes): the same three Predictors, agreement and the
+     accumulators (16 frames). `serve_rates` lines: per config and dtype, the
+     inference function's device frames/s at batch 256 (CUDA events), one
+     request's frames/s from the host, peak memory, weight bytes;
+  6e. cardiac_real: the real-data trainer. A CardiacUDA-shaped tree of
      `.nii.gz` volumes (Site_G, Site_R, Site_R_full; view 4; non-square
      288x352 frames, 64 a volume; filled organ labels, contours for
      Site_R_full) written with `data/formats.write_nifti`, indexed by
@@ -96,7 +115,8 @@ Phases, each printing one JSON line:
      images/s and peak memory.
 Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
-path driven, `cardiac_real step` among them), the nvidia-smi line, and last
+path driven, `cardiac_real step` and `serve` among them), the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
 """
@@ -143,6 +163,14 @@ PVIG_S_PARAMS = 27_251_912
 # CardiacUDA frames may be; patients per site (Site_G: 36 give 32 train ids,
 # two source batches of 16 an epoch)
 REAL_SHAPE = (288, 352, 64)
+# the serve phase: the Predictor's batch, a request of two batches (the
+# second ragged), and the mask agreement held between dtypes
+# (`tests/test_quant.py`'s bar). The states saved after 3 and 1 steps are
+# barely trained: many of their logits sit near 0, where int8's error flips
+# pixels, so int8 is held to the bar where |logit_f32| > SERVE_CONFIDENT and
+# on every pixel once camus has trained SERVE_MORE_STEPS further.
+SERVE_BATCH, SERVE_FRAMES, SERVE_AGREE = 256, 300, 0.98
+SERVE_CONFIDENT, SERVE_MORE_STEPS = 0.5, 27
 REAL_PATIENTS = {"Site_G": 36, "Site_R": 4, "Site_R_full": 2}
 
 
@@ -754,11 +782,21 @@ def _steady_step_ms(trainer, n: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_main(card: str):
+def phase_main(card: str, ckpt_root: Path):
+    """camus and cardiac; each trainer's state after its steps is saved under
+    `ckpt_root` for the serve phase. Returns camus's launches and
+    {name: (cfg, checkpoint dir)}."""
     from graphecho_torch import entrypoints
+    from graphecho_torch.train.checkpoint import CheckpointManager
 
+    def save(name, trainer):
+        CheckpointManager(str(ckpt_root / name)).save(trainer.state.step, trainer.state)
+        ckpts[name] = (trainer.cfg, str(ckpt_root / name))
+
+    ckpts = {}
     trainer, launches, seconds = _drive(entrypoints.train_camus_echo, num_epochs=1,
                                         steps_per_epoch=3, n_eval=4)
+    save("camus", trainer)
     means = trainer.last_epoch_metrics
     _check_losses(means, "camus")
     dices = trainer.last_dices
@@ -777,6 +815,7 @@ def phase_main(card: str):
 
     trainer, launches, seconds = _drive(entrypoints.train_cardiac_uda, num_epochs=1,
                                         steps_per_epoch=1, n_eval=2)
+    save("cardiac", trainer)
     means = trainer.last_epoch_metrics
     _check_losses(means, "cardiac")
     for key in LOSS_KEYS[1:5]:
@@ -790,7 +829,9 @@ def phase_main(card: str):
     emit("cardiac", losses={k: means[k] for k in LOSS_KEYS}, dice=trainer.last_dices,
          launches=launches, run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib,
          card=card, cfg="cardiac_uda_config()")
-    return camus_launches
+    del trainer
+    torch.cuda.empty_cache()
+    return camus_launches, ckpts
 
 
 def phase_full(card: str):
@@ -860,6 +901,218 @@ def phase_full(card: str):
     del trainer
     torch.cuda.empty_cache()
     return full_launches, full_step_ms
+
+
+def _serve_frames(cfg, n: int, seed: int) -> np.ndarray:
+    """`n` synthetic echo-like (H, W, 1) frames at the config's size."""
+    from graphecho_torch.data.synthetic import synth_image_and_mask
+
+    rng = np.random.RandomState(seed)
+    h, w = cfg.data.img_crop
+    return np.stack([synth_image_and_mask(rng, h, w, 1)[0] for _ in range(n)])
+
+
+def _serve_rates(name: str, dtype: str, pred, frames: np.ndarray, card: str, reps: int,
+                 forwards: int) -> None:
+    """One `serve_rates` line: the inference function's device frames/s at
+    the Predictor's batch (CUDA events, resident input), one request's
+    frames/s from the host, peak memory, weight bytes, the backbone's
+    device ms alone (for int8 the `_int_mm` route with its im2col and
+    (de)quantisation, else cuDNN in the dtype) and the least time the card
+    could take (`bench.bound_ms`)."""
+    from graphecho_torch import bench
+
+    batch = frames[:pred.batch_size]
+    x = torch.from_numpy(batch).cuda()
+    backbone = pred._infer.qb if dtype == "int8" else pred.fpn.back_bone
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = bench.forward_ms(lambda: pred._infer(x), x.device, reps, forwards, 2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        backbone_ms = bench.forward_ms(lambda: backbone(x.permute(0, 3, 1, 2)), x.device,
+                                       reps, forwards, 1)
+    req = bench.request_ms(pred, batch, reps)
+    flops = bench.fpn_flops(pred.cfg)
+    emit("serve_rates", cfg=name, dtype=dtype, batch=len(batch), forward_ms=ms,
+         frames_per_s=len(batch) / ms * 1e3, request_ms=req,
+         request_frames_per_s=len(batch) / req * 1e3, peak_memory_gib=peak,
+         backbone_ms=backbone_ms, gflop_per_frame=sum(flops) / 1e9,
+         bound_ms=bench.bound_ms(flops, len(batch), dtype), weight_bytes=pred.weight_bytes(),
+         card=card)
+
+
+def _check_accumulators(what: str, pred, frames: np.ndarray) -> int:
+    """Every int8 layer's int32 accumulators, as the Predictor computes them
+    on the card (`_int_mm`), against the float64 plain route on the same
+    int8 inputs: equal bit for bit. Returns the number of layers held."""
+    from graphecho_torch.quant.ptq import int8_conv_plain
+
+    qb, held = pred._infer.qb, []
+
+    def tap(name, x8, acc):
+        lyr = qb.layer(name)
+        check(x8.is_cuda and acc.dtype == torch.int32, f"{what}: {name} ran off the card")
+        plain = int8_conv_plain(x8, lyr.wq, lyr.stride, lyr.padding)
+        check(torch.equal(acc, plain), f"{what}: int8 accumulators of {name} differ from the "
+              f"plain route in {(acc != plain).sum().item()} places")
+        held.append(name)
+
+    with torch.inference_mode():
+        qb(torch.from_numpy(frames).cuda().permute(0, 3, 1, 2), tap=tap)
+    check(held == qb.names, f"{what}: held {len(held)} of {len(qb.names)} int8 layers")
+    return len(held)
+
+
+def _agreement(preds: dict, frames: np.ndarray):
+    """Each Predictor's masks of `frames`; their agreement on every pixel and
+    where |logit_f32| > SERVE_CONFIDENT (int8 against both floats); the f32
+    logits' |.| quantiles."""
+    masks = {dt: p.predict(frames) for dt, p in preds.items()}
+    fpn = preds["float32"].fpn
+    with torch.inference_mode():
+        x = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2)
+        logits = torch.cat([fpn(x[i:i + SERVE_BATCH])[0] for i in range(0, len(x),
+                                                                         SERVE_BATCH)])
+    abs_logit = logits.permute(0, 2, 3, 1).abs().cpu().numpy()
+    pairs = [(a, b) for a, b in (("bfloat16", "float32"), ("int8", "float32"),
+                                 ("int8", "bfloat16")) if a in masks and b in masks]
+    agree = {f"{a}_vs_{b}": float((masks[a] == masks[b]).mean()) for a, b in pairs}
+    sure = abs_logit > SERVE_CONFIDENT
+    confident = {f"{a}_vs_{b}": float((masks[a] == masks[b])[sure].mean())
+                 for a, b in pairs if a == "int8"}
+    return masks, agree, confident, np.quantile(abs_logit, [0.01, 0.05, 0.1, 0.5]).tolist()
+
+
+def _serve_more_trained(cfg, ckpt: str, card: str) -> None:
+    """camus trained SERVE_MORE_STEPS steps further from its saved state (so
+    that fewer logits sit near 0): int8 against f32 on every pixel."""
+    from graphecho_torch.data.synthetic import SyntheticEchoData
+    from graphecho_torch.serve import Predictor
+    from graphecho_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, checkpoint_dir=ckpt)
+    trainer.init_state()
+    data = SyntheticEchoData(cfg, seed=99)
+    for _ in range(SERVE_MORE_STEPS):
+        trainer._train_step(trainer.state, data.train_batch())
+    trainer.ckpt.save(trainer.state.step, trainer.state)
+    steps = trainer.state.step
+    del trainer
+    preds = {"float32": Predictor.from_checkpoint(cfg, ckpt, batch_size=SERVE_BATCH,
+                                                  compute_dtype="float32")}
+    preds["int8"] = Predictor.from_checkpoint(cfg, ckpt, batch_size=SERVE_BATCH, quantize=True)
+    _, agree, confident, quantiles = _agreement(preds, _serve_frames(cfg, SERVE_FRAMES, seed=5))
+    check(agree["int8_vs_float32"] > SERVE_AGREE,
+          f"serve_camus after {steps} steps: int8 agreement {agree}")
+    emit("serve_camus_trained", steps=steps, agreement=agree,
+         agreement_where_confident=confident, abs_logit_quantiles_1_5_10_50=quantiles,
+         seconds=time.perf_counter() - t0, card=card)
+    del preds
+    torch.cuda.empty_cache()
+
+
+def _serve_config(name: str, cfg, ckpt: str, card: str, tmp: Path, full: bool,
+                  acc_frames: int, reps: int, forwards: int) -> None:
+    """The bf16, f32 and int8 Predictors of one trained checkpoint: masks of a
+    ragged two-batch request, their agreement, the int8 accumulators; with
+    `full`, uint8 frames through the resize, an empty request, video against
+    batch, export and reload, and a hot swap."""
+    from graphecho_torch.serve import Predictor, load_exported, prep_frames
+
+    t0 = time.perf_counter()
+    frames = _serve_frames(cfg, SERVE_FRAMES, seed=5)
+    h, w = cfg.data.img_crop
+    n_cls = cfg.model.num_classes
+    preds = {"bfloat16": Predictor.from_checkpoint(cfg, ckpt, batch_size=SERVE_BATCH,
+                                                   devices=["cuda"])}
+    preds["float32"] = Predictor(cfg, preds["bfloat16"].variables, batch_size=SERVE_BATCH,
+                                 compute_dtype="float32", devices=["cuda"])
+    preds["int8"] = Predictor.from_checkpoint(cfg, ckpt, batch_size=SERVE_BATCH, quantize=True)
+    masks, agree, confident, quantiles = _agreement(preds, frames)
+    for dt, m in masks.items():
+        check(m.shape == (SERVE_FRAMES, h, w, n_cls) and m.dtype == np.int8
+              and set(np.unique(m)) <= {0, 1}, f"serve_{name} {dt}: masks {m.shape} {m.dtype}")
+    check(agree["bfloat16_vs_float32"] > SERVE_AGREE
+          and all(v > SERVE_AGREE for v in confident.values()),
+          f"serve_{name}: agreement {agree}, where |logit_f32| > {SERVE_CONFIDENT}: {confident}")
+    layers = _check_accumulators(f"serve_{name}", preds["int8"], frames[:acc_frames])
+    out = dict(cfg=name, frames=SERVE_FRAMES, batch=SERVE_BATCH, agreement=agree,
+               agreement_where_confident=confident, confident_margin=SERVE_CONFIDENT,
+               abs_logit_quantiles_1_5_10_50=quantiles,
+               positive_share={dt: float(m.mean()) for dt, m in masks.items()},
+               int8_layers_bit_equal=layers, accumulator_frames=acc_frames)
+    if full:
+        pb, pq = preds["bfloat16"], preds["int8"]
+        u8 = (np.random.RandomState(6).rand(20, 100, 90) * 255).astype(np.uint8)
+        got = pb.predict(u8)
+        check(got.shape == (20, h, w, n_cls) and np.array_equal(
+            got, pb.predict(prep_frames(u8, (h, w)))), f"serve_{name}: uint8 100x90 frames")
+        empty = pb.predict(np.zeros((0, h, w), np.float32))
+        check(empty.shape == (0, h, w, n_cls) and empty.dtype == np.int8,
+              f"serve_{name}: empty request {empty.shape}")
+        for dt in ("bfloat16", "float32"):
+            check(np.array_equal(preds[dt].predict_video(frames[:128]), masks[dt][:128]),
+                  f"serve_{name} {dt}: predict_video differs from predict")
+        export_s = {}
+        for dt in ("bfloat16", "int8"):
+            t1 = time.perf_counter()
+            preds[dt].export_compiled(str(tmp / f"{name}_{dt}"))
+            loaded = load_exported(str(tmp / f"{name}_{dt}"))
+            check(np.array_equal(loaded.predict(frames), masks[dt]),
+                  f"serve_{name} {dt}: the exported program's masks differ")
+            export_s[dt] = time.perf_counter() - t1
+        # a head bias that turns every pixel to the masks' minority value
+        swapped = {k: v.clone() for k, v in pb.variables.items()}
+        swapped["conv3.bias"] += 20.0 if masks["bfloat16"].mean() < 0.5 else -20.0
+        original = pb.variables
+        pb.variables = swapped
+        check(not np.array_equal(pb.predict(frames[:8]), masks["bfloat16"][:8])
+              and not np.array_equal(pb.predict_video(frames[:8]), masks["bfloat16"][:8]),
+              f"serve_{name}: a hot swap left the masks as they were")
+        pb.variables = original
+        check(np.array_equal(pb.predict(frames), masks["bfloat16"]),
+              f"serve_{name}: swapping the weights back did not restore the masks")
+        try:
+            pq.variables = swapped
+            check(False, f"serve_{name}: the int8 Predictor took new weights")
+        except ValueError as e:
+            check("frozen" in str(e), f"serve_{name}: int8 refusal said {e}")
+        out.update(uint8_frames=[100, 90], video_frames=128, export_and_load_s=export_s,
+                   hot_swap=True)
+    emit(f"serve_{name}", **out, seconds=time.perf_counter() - t0, card=card)
+    for dt, p in preds.items():
+        _serve_rates(name, dt, p, frames, card, reps, forwards)
+    del preds
+    torch.cuda.empty_cache()
+
+
+def phase_serve(card: str, ckpts: dict) -> dict:
+    """Serving from the trained checkpoints of phase_main: camus with every
+    check, cardiac with the agreement and accumulator checks, then camus
+    trained further. Returns the kernel launches the serving path made
+    (none: it has no hand kernel)."""
+    from graphecho_torch.ops import knn
+    from graphecho_torch.ops import pairwise_mlp as pm
+
+    tmp = Path(tempfile.mkdtemp(prefix="serve_"))
+    try:
+        pm.reset_launch_counts()
+        knn.reset_launch_counts()
+        cfg, ckpt = ckpts["camus"]
+        _serve_config("camus", cfg, ckpt, card, tmp, full=True, acc_frames=SERVE_BATCH,
+                      reps=3, forwards=5)
+        cfg, ckpt = ckpts["cardiac"]
+        _serve_config("cardiac", cfg, ckpt, card, tmp, full=False, acc_frames=16,
+                      reps=2, forwards=1)
+        launches = {**pm.LAUNCHES, **knn.LAUNCHES}
+        # train steps launch the pairwise kernels: after the count
+        _serve_more_trained(*ckpts["camus"], card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not any(launches.values()), f"serve: kernel launches {launches}")
+    return launches
 
 
 def _cardiac_volume(seed: int, contour: bool):
@@ -1211,8 +1464,13 @@ def main() -> int:
     phase_knn_ties()
     phase_reference()
     phase_temporal_reference()
-    camus = phase_main(card)
-    full, full_step_ms = phase_full(card)
+    ckpt_root = Path(tempfile.mkdtemp(prefix="trained_"))
+    try:
+        camus, ckpts = phase_main(card, ckpt_root)
+        full, full_step_ms = phase_full(card)
+        serve = phase_serve(card, ckpts)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     real = phase_cardiac_real(card, full_step_ms)
     phase_vig_reference()
     pvig = phase_vig(card)
@@ -1222,7 +1480,8 @@ def main() -> int:
         row["launches"] = full[name]
         row["launches_by_path"] = {"cardiac_full step": full[name],
                                    "camus 3 steps": camus[name],
-                                   "cardiac_real step": real[name]}
+                                   "cardiac_real step": real[name],
+                                   "serve": serve[name]}
     knn_row["launches_by_path"]["pvig_s forward"] = pvig
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -12,6 +12,10 @@ modules load with `load_state_dict`:
   * the Affinity's split `fc1_wx`/`fc1_wy`/`fc1_b`/`fc2_w`/`fc2_b` are kept
     as they are (the port keeps the same split parameters and layouts).
 
+`qparams_from_flax` carries the JAX package's int8 PTQ parameters
+(`QuantizedBackbone.qparams()`) over to the port's int8 executor
+(`graphecho_torch/quant/ptq.py`), by layer name.
+
 The FPN's torch names are the reference's (`back_bone.layer1.0.conv1`,
 `back_bone.block_1.0`, torchvision's `downsample.0/1`), so a state dict that
 went through `graphecho_tpu/utils/torch_import.py` comes back unchanged. The
@@ -171,4 +175,39 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, Any]:
     for name in ("sr_seed", "tg_seed", "queue_source", "queue_target"):
         if variables.get(name) is not None:
             out[name] = _t(variables[name])
+    return out
+
+
+_QCONV_RESNET = re.compile(r"^layer(\d+)_block(\d+)/(conv[123]|conv_down)$")
+
+
+def _qlayer_name(name: str) -> str:
+    """A JAX int8 layer name -> the port's (`layer1_block0/conv_down` ->
+    `layer1.0.downsample.0`, `block2_conv3` -> `block_2.6`)."""
+    m = _QCONV_RESNET.match(name)
+    if m:
+        part = "downsample.0" if m.group(3) == "conv_down" else m.group(3)
+        return f"layer{m.group(1)}.{m.group(2)}.{part}"
+    m = _VGG_CONV.match(name)
+    if m:
+        return f"block_{m.group(1)}.{3 * (int(m.group(2)) - 1)}"
+    if name == "conv1":
+        return name
+    raise ValueError(f"unknown int8 layer {name!r}")
+
+
+def qparams_from_flax(qparams: Mapping[str, Mapping[str, Any]]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's int8 `qparams()` (layer -> `wq` int8 HWIO,
+    `w_scale`, `bias`, `in_scale`; numpy arrays) as the port's
+    `QuantizedBackbone.load_qparams` takes them: port layer names, `wq` OIHW
+    int8, the scales and biases float32 as they are."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, p in qparams.items():
+        wq = np.asarray(p["wq"])
+        if wq.dtype != np.int8:
+            raise ValueError(f"{name}: wq is {wq.dtype}, not int8")
+        out[_qlayer_name(name)] = {
+            "wq": torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 2, 0, 1))),
+            "w_scale": _t(p["w_scale"]), "bias": _t(p["bias"]),
+            "in_scale": _t(p["in_scale"]).reshape(())}
     return out

@@ -10,6 +10,12 @@ VGG, torchvision's `conv1`/`layer{i}.{j}.conv1`/`downsample.0` for ResNet), so
 a reference state dict loads by name. The reference's `ResNet50` builds stage
 sizes [3, 4, 5, 3], not [3, 4, 6, 3] (`fpnseg.py:295`); the quirk is kept.
 
+`dtype` is flax's `dtype`: with `torch.bfloat16` every conv casts its input,
+weight and bias to bf16 and returns bf16, and every BatchNorm computes in f32
+and returns bf16; the parameters stay f32 (`set_compute_dtype`). None leaves
+every op in its input's dtype. `torch.autocast` is not used: its per-op policy
+is not flax's.
+
 `BatchNorm2d` computes what flax's BatchNorm in the JAX package computes,
 which is not what `torch.nn.BatchNorm2d` computes: the running variance takes
 the BIASED batch variance (torch folds in the unbiased one). Momentum 0.1 here
@@ -61,12 +67,29 @@ def remat(block: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> tor
     return checkpoint(block, x, use_reentrant=False, context_fn=_recompute_contexts)
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` with flax's `dtype`: input, weight and bias cast to
+    `dtype`, which the output keeps."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW with flax's running-statistics update.
 
     Train mode normalizes with the batch statistics and folds the batch mean
     and the biased batch variance into the running stats, by hand, with
-    momentum 0.1 (flax 0.9); eval mode uses the running stats."""
+    momentum 0.1 (flax 0.9); eval mode uses the running stats. With a
+    `dtype`, the statistics and the affine are computed in f32 and the
+    output is cast to `dtype`, as flax's `_normalize` does."""
+
+    dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -78,6 +101,11 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            return self._normalize(x.float()).to(self.dtype)
+        return self._normalize(x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -89,9 +117,28 @@ class BatchNorm2d(nn.Module):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
+class GroupNorm(nn.GroupNorm):
+    """`nn.GroupNorm` with flax's `dtype`: computed in f32, cast to `dtype`."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.dtype)
+
+
 def conv2d(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-           bias: bool = True, init="lecun") -> nn.Conv2d:
-    return set_init(nn.Conv2d(cin, cout, k, stride, padding, bias=bias), init)
+           bias: bool = True, init="lecun") -> Conv2d:
+    return set_init(Conv2d(cin, cout, k, stride, padding, bias=bias), init)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Give every conv and norm under `module` the compute `dtype` (None:
+    compute in the input's dtype)."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, BatchNorm2d, GroupNorm)):
+            m.dtype = dtype
 
 
 class VGG16(nn.Module):
@@ -100,7 +147,7 @@ class VGG16(nn.Module):
 
     def __init__(self, in_channels: int = 1,
                  block_spec: Optional[Tuple[Tuple[int, int], ...]] = None,
-                 remat: bool = False):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.remat = remat
         self.block_spec = tuple(block_spec or _VGG16_SPEC)
@@ -114,6 +161,7 @@ class VGG16(nn.Module):
                 prev = width
             layers.append(nn.MaxPool2d(2, 2))
             setattr(self, f"block_{bi + 1}", nn.Sequential(*layers))
+        set_compute_dtype(self, dtype)
 
     @property
     def out_channels(self) -> Tuple[int, ...]:
@@ -161,7 +209,7 @@ class ResNet(nn.Module):
     and the 4 stage outputs (strides 4/8/16/32), `fpnseg.py:251-266`."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 5, 3), in_channels: int = 1,
-                 remat: bool = False):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.remat = remat
         self.conv1 = conv2d(in_channels, 64, 7, 2, 3, bias=False, init="he")
@@ -176,6 +224,7 @@ class ResNet(nn.Module):
                 stage.append(Bottleneck(inplanes, planes, s, down))
                 inplanes = planes * 4
             setattr(self, f"layer{si + 1}", nn.Sequential(*stage))
+        set_compute_dtype(self, dtype)
 
     out_channels = (64, 256, 512, 1024, 2048)
 
@@ -192,10 +241,12 @@ class ResNet(nn.Module):
         return feats
 
 
-def ResNet50(in_channels: int = 1, remat: bool = False) -> ResNet:
+def ResNet50(in_channels: int = 1, remat: bool = False,
+             dtype: Optional[torch.dtype] = None) -> ResNet:
     """Reference `ResNet50` quirk: stage sizes [3,4,5,3] (`fpnseg.py:295`)."""
-    return ResNet((3, 4, 5, 3), in_channels, remat)
+    return ResNet((3, 4, 5, 3), in_channels, remat, dtype)
 
 
-def ResNet101(in_channels: int = 1, remat: bool = False) -> ResNet:
-    return ResNet((3, 4, 23, 3), in_channels, remat)
+def ResNet101(in_channels: int = 1, remat: bool = False,
+              dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet((3, 4, 23, 3), in_channels, remat, dtype)

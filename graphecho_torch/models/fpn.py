@@ -15,6 +15,11 @@ Reference `models/fpnseg.py:309-444`:
 
 gn1/gn2 use eps 1e-6: the JAX package leaves flax's default there
 (`fpn.py:72-75`); torch's and the reference's default is 1e-5.
+
+`dtype=torch.bfloat16` is the JAX FPN's `dtype=jnp.bfloat16` with f32
+parameters: convs compute in bf16, the BatchNorms and GroupNorms in f32 with
+a bf16 output, the resizes and adds in bf16, and the logits are bf16
+(`models/backbones.py::set_compute_dtype`).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from graphecho_torch.models.backbones import VGG16, ResNet50, conv2d
+from graphecho_torch.models.backbones import VGG16, GroupNorm, ResNet50, conv2d, set_compute_dtype
 from graphecho_torch.ops.resize import resize_bilinear_align_corners, upsample_add
 
 FLAX_GN_EPS = 1e-6
@@ -36,12 +41,13 @@ class FPN(nn.Module):
                  fpn_channels: int = 256, semantic_channels: int = 128,
                  in_channels: int = 1,
                  vgg_spec: Optional[Tuple[Tuple[int, int], ...]] = None,
-                 remat: bool = False):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if back_bone == "resnet":
-            self.back_bone = ResNet50(in_channels, remat=remat)
+            self.back_bone = ResNet50(in_channels, remat=remat, dtype=dtype)
         elif back_bone == "VGG16":
-            self.back_bone = VGG16(in_channels, block_spec=vgg_spec, remat=remat)
+            self.back_bone = VGG16(in_channels, block_spec=vgg_spec, remat=remat, dtype=dtype)
         else:
             raise ValueError(f"unknown backbone {back_bone!r}")
         _, c2, c3, c4, c5 = self.back_bone.out_channels
@@ -56,8 +62,9 @@ class FPN(nn.Module):
         self.conv2 = conv2d(c, c, 3, padding=1)
         self.semantic_branch = conv2d(c, s, 3, padding=1)
         self.conv3 = conv2d(s, num_classes, 1)
-        self.gn1 = nn.GroupNorm(s, s, eps=FLAX_GN_EPS)
-        self.gn2 = nn.GroupNorm(c, c, eps=FLAX_GN_EPS)
+        self.gn1 = GroupNorm(s, s, eps=FLAX_GN_EPS)
+        self.gn2 = GroupNorm(c, c, eps=FLAX_GN_EPS)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x: (B, C_in, H, W). Returns (logits (B, num_classes, H, W),
@@ -96,3 +103,37 @@ class FPN(nn.Module):
         logits = self.conv3(s2 + s3 + s4 + s5)
         logits = resize_bilinear_align_corners(logits, 4 * h, 4 * w)
         return logits, features_map
+
+
+class FPNHead(nn.Module):
+    """The FPN's pyramid and semantic head without its backbone, sharing the
+    FPN's modules: what the int8 backbone's features go through
+    (`quant/ptq.py`), as `fpn.apply(..., method=FPN.head)` in the JAX package."""
+
+    def __init__(self, fpn: FPN):
+        super().__init__()
+        for name, child in fpn.named_children():
+            if name != "back_bone":
+                self.add_module(name, child)
+
+    forward = FPN.head
+
+
+def masks_nhwc(logits: torch.Tensor, threshold: float) -> torch.Tensor:
+    """σ(logits) > threshold, computed in the logits' own dtype as the JAX
+    package does (in bf16 that is not logits > 0), as (B, H, W, C) int8."""
+    return (torch.sigmoid(logits) > threshold).to(torch.int8).permute(0, 2, 3, 1)
+
+
+class FPNMasks(nn.Module):
+    """(B, H, W, C_in) float frames -> (B, H, W, classes) int8 masks through
+    the float FPN: the inference function a Predictor serves and exports."""
+
+    def __init__(self, fpn: FPN, threshold: float = 0.5):
+        super().__init__()
+        self.fpn = fpn
+        self.threshold = threshold
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits, _ = self.fpn(x.permute(0, 3, 1, 2))
+        return masks_nhwc(logits, self.threshold)

@@ -3,7 +3,10 @@
 The JAX package writes align-corners bilinear as two interpolation-matrix
 products at `Precision.HIGHEST` because a gather is slow on the TPU;
 `F.interpolate(mode="bilinear", align_corners=True)` computes the same
-function (the reference's own call, `fpnseg.py:358-359,371-388`).
+function (the reference's own call, `fpnseg.py:358-359,371-388`). Each
+resize runs in its input's dtype: bf16 in a bf16 FPN, as the JAX package's
+do (it also rounds its interpolation weights to bf16 there; these stay
+exact).
 """
 
 from __future__ import annotations

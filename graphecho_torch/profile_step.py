@@ -6,7 +6,10 @@ A step is one train step of a recipe's trainer at full width
 (`camus_echo_config()` or `cardiac_uda_config()`; `camus_temporal` and
 `cardiac_full` add the temporal branch, and the cycle loss to the latter, at
 batch 8 + 8), or, for `--recipe pvig_s`,
-one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images. Runs
+one eval forward of `pvig_s(n_classes=1000)` on 32 random 224² images, or,
+for `--recipe serve_float32` / `serve_bfloat16` / `serve_int8`, one forward
+of the camus Predictor's inference function (`serve.py`, random weights, as
+`python -m graphecho_torch.bench` builds it) on a resident batch of 256. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. `--remat` and `--fused-fpn`
 switch those model options on. Prints one JSON object: the steady step time,
@@ -50,6 +53,8 @@ RECIPES: Dict[str, Callable[[], ExperimentConfig]] = {
     "cardiac_full": lambda: _batch_8_8(cardiac_uda_config(temporal_graph=True, cyc_loss=True)),
 }
 PVIG_BATCH = 32
+SERVE_BATCH = 256
+SERVE_RECIPES = ("serve_float32", "serve_bfloat16", "serve_int8")
 # the kernels of `csrc/pairwise_mlp.cu`; the last four are the names its
 # forward and backward had before, so an older tree can be profiled with this
 # script too
@@ -93,6 +98,21 @@ def _step_fn(recipe: str, n: int, **model_options) -> Callable[[int], None]:
             with torch.no_grad():
                 model(x)
         return forward
+    if recipe in SERVE_RECIPES:
+        from graphecho_torch.bench import camus_fpn_weights
+        from graphecho_torch.serve import Predictor
+
+        dtype = recipe.removeprefix("serve_")
+        cfg, weights = camus_fpn_weights()
+        pred = Predictor(cfg, weights, batch_size=SERVE_BATCH, quantize=dtype == "int8",
+                         compute_dtype="bfloat16" if dtype == "int8" else dtype)
+        x = torch.rand((SERVE_BATCH, *cfg.data.img_crop, 1), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+
+        def serve(i: int) -> None:
+            with torch.inference_mode():
+                pred._infer(x)
+        return serve
     cfg = RECIPES[recipe]()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_options))
     trainer = Trainer(cfg)
@@ -182,7 +202,8 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--recipe", choices=sorted(RECIPES) + ["pvig_s"], default="camus")
+    parser.add_argument("--recipe", choices=sorted(RECIPES) + ["pvig_s", *SERVE_RECIPES],
+                        default="camus")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--remat", action="store_true",

@@ -39,13 +39,18 @@ from graphecho_torch.train.metrics import confusion_counts
 from graphecho_torch.train.state import DIS_LEVELS, TrainState
 
 
+# the FPN's compute dtype by `ModelConfig.compute_dtype`; f32 is the
+# unconverted path (`models/backbones.py::set_compute_dtype`)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for the options that the port does not implement yet."""
+    """Raise for the train-step options that the port does not implement yet."""
     t, m = cfg.train, cfg.model
     deferred = {
         "mesh_data": (t.mesh_data is not None, "the data-parallel slice"),
-        "compute_dtype='bfloat16'": (m.compute_dtype != "float32",
-                                     "the serving and quantised-inference slice"),
+        "compute_dtype='bfloat16' in the train step": (
+            m.compute_dtype != "float32", "the bf16 train step"),
     }
     for name, (on, where) in deferred.items():
         if on:
@@ -54,8 +59,19 @@ def check_supported(cfg: ExperimentConfig) -> None:
                 "(ROADMAP.md, Queue 1)")
 
 
+def build_fpn(cfg: ExperimentConfig) -> FPN:
+    """The FPN of `cfg.model`, computing in `cfg.model.compute_dtype`
+    (`graphecho_tpu/train/steps.py:60-66`)."""
+    m = cfg.model
+    if m.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {m.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+    return FPN(num_classes=m.num_classes, back_bone=m.backbone,
+               fpn_channels=m.fpn_channels, semantic_channels=m.semantic_channels,
+               in_channels=m.in_channels, vgg_spec=m.vgg_spec, remat=m.remat,
+               dtype=COMPUTE_DTYPES[m.compute_dtype])
+
+
 def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:
-    check_supported(cfg)
     t = cfg.train
     if t.temporal_graph and not t.graph_matching:
         # the temporal branch reuses the GModule (`train_camus_echo.py:271-272`)
@@ -67,13 +83,7 @@ def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:
             "discriminator=True requires graph_matching=True (the per-level "
             "discriminators run on the target-domain features the graph-matching "
             "branch computes)")
-    models: Dict[str, nn.Module] = {
-        "fpn": FPN(num_classes=cfg.model.num_classes, back_bone=cfg.model.backbone,
-                   fpn_channels=cfg.model.fpn_channels,
-                   semantic_channels=cfg.model.semantic_channels,
-                   in_channels=cfg.model.in_channels, vgg_spec=cfg.model.vgg_spec,
-                   remat=cfg.model.remat),
-    }
+    models: Dict[str, nn.Module] = {"fpn": build_fpn(cfg)}
     if t.graph_matching:
         models["gmodule"] = GModule(cfg.gmodule)
     if t.discriminator:
@@ -104,6 +114,7 @@ def make_train_step(cfg: ExperimentConfig
     temp_imgs_source/target (Bc,T,H,W,1), temp_masks (Bc,T,H,W,Cm) and
     update_idx_source/target (Bc,); with cyc_loss cyc_imgs
     (n_clips*64,H,W,1), whole clips back to back."""
+    check_supported(cfg)
     t = cfg.train
     is_camus = cfg.model.backbone == "resnet"
     sampler = cfg.gmodule.sampler

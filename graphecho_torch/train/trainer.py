@@ -34,7 +34,8 @@ from graphecho_torch.device import resolve_device
 from graphecho_torch.train.checkpoint import CheckpointManager
 from graphecho_torch.train.metrics import overlap_metrics_from_counts
 from graphecho_torch.train.state import TrainState, create_train_state
-from graphecho_torch.train.steps import build_models, make_eval_step, make_train_step
+from graphecho_torch.train.steps import (build_models, check_supported, make_eval_step,
+                                         make_train_step)
 from graphecho_torch.utils.preemption import PreemptionGuard
 from graphecho_torch.utils.summary import SummaryWriter
 
@@ -80,6 +81,7 @@ class Trainer:
                  drop_bg_channel_in_eval: Optional[bool] = None):
         if use_mesh or mesh is not None:
             raise _not_ported("use_mesh / mesh", "the data-parallel slice")
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.steps_per_epoch = steps_per_epoch

@@ -19,6 +19,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -37,6 +38,18 @@ from graphecho_torch.data import formats as tformats
 from graphecho_torch.data import infos as tinfos
 from graphecho_torch.data import loader as tloader
 from graphecho_torch.data import transforms as ttransforms
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 cv2 = pytest.importorskip("cv2")
 

@@ -26,6 +26,18 @@ from graphecho_torch.models.backbones import BatchNorm2d, Bottleneck
 from graphecho_torch.models.fpn import FPN
 from graphecho_torch.models.initializers import initialize
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY_VGG = ((8, 1), (16, 2), (16, 1), (32, 1), (32, 1))
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}

@@ -45,6 +45,18 @@ from graphecho_torch.ops import spectral as tspectral
 from graphecho_torch.train import losses as tlosses
 from graphecho_torch.train import metrics as tmetrics
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # cheap XLA:CPU compiles: the JAX side runs each reference function as one
 # program instead of op by op
 FAST_COMPILE = {"xla_backend_optimization_level": 0,

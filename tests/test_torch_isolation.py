@@ -13,6 +13,18 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "graphecho_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "graphecho_tpu")

@@ -25,6 +25,17 @@ from test_torch_pairwise_mlp import report_parity
 from graphecho_torch.ops import knn as tknn
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -28,6 +28,18 @@ from graphecho_torch import pairwise_bench
 from graphecho_torch.ops import pairwise_mlp as pm
 from graphecho_torch.profile_step import PAIRWISE_KERNELS, kernel_base_name
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [(70, 50, 40), (112, 112, 128)]
 
 

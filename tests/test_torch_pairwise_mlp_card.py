@@ -21,6 +21,18 @@ import torch
 
 from graphecho_torch.ops import pairwise_mlp as pm
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.cuda
 
 NAMES = ("dA", "dB", "dw2", "db2")

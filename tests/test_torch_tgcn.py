@@ -43,6 +43,18 @@ from graphecho_torch.ops.resize import adaptive_avg_pool2d
 from graphecho_torch.ops.sinkhorn import sinkhorn_distance
 from graphecho_torch.train import cycle
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LEVELS = (16, 8, 4, 2)  # pooled onto the 4x4 grid: down by 4 and 2, equal, up by 2
 B, T, C, K_QUEUE = 4, 2, 32, 6
 N_NODES = 10

@@ -39,6 +39,18 @@ from graphecho_torch.ops import pairwise_mlp as pm
 from graphecho_torch.train.state import create_train_state
 from graphecho_torch.train.steps import build_models, make_train_step
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 B, HW = 2, 64

@@ -8,8 +8,22 @@ positive node, so both packages gate the graph losses to 0: the discriminators
 behind gradient reversal and the seg loss carry the gradient.
 """
 
+import pytest
+import torch
+
 from test_torch_train_step import (_assert_losses, _batches, _check_deltas,
                                    _port_snapshot, _shared_start, make_train_step)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_one_step_matches_jax():

@@ -43,6 +43,18 @@ from graphecho_torch.train import cycle
 from graphecho_torch.train.state import create_train_state
 from graphecho_torch.train.steps import build_models, check_supported, make_train_step
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, HW, T = 2, 64, 2
 TGCN_KEYS = ("mlp_conv1.weight", "mlp_conv2.weight", "mr_conv.nn.conv_0.weight", "pos_embed",
              "graph_attention.linear_q.weight", "graph_attention.layer_norm.weight",

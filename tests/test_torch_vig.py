@@ -33,6 +33,18 @@ from graphecho_torch.convert import from_flax, module_state_dict, vig_state_dict
 from graphecho_torch.models import tgcn_cells as tcells
 from graphecho_torch.models import vig as tvig
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default of a thread per core oversubscribes the machine
+    (tens of times slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 TINY = dict(blocks=(1, 1, 2, 1), channels=(8, 16, 24, 32), k=2, n_classes=10, img_size=64)
