@@ -1,8 +1,10 @@
 """Smoke run of graphecho_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, drives the CAMUS->EchoNet and
 CardiacUDA train steps at full width, with every branch (temporal TGCN,
-64-frame cycle loss) too, serves both trained models in bf16, f32 and int8,
-and runs the pvig_s ViG classifier.
+64-frame cycle loss) too, in f32, in bf16 and data parallel over an NCCL
+process group, serves both trained models in bf16, f32 and int8, runs the
+pvig_s ViG classifier in f32 and bf16, and the profiling and `.pth` import
+tooling.
 
     python3 chip_smoke.py
 
@@ -70,6 +72,20 @@ Phases, each printing one JSON line:
   6c. camus_temporal: one step of `train_camus_echo(temporal_graph=True)`
      (112², target batch 168: the 4x4 pyramid level pooled up to the 8x8
      grid), counted the same way;
+  6c'. bf16_full: cardiac_full with `compute_dtype="bfloat16"` through the
+     entry point, counted the same way (8, 2, 2), every loss finite, the
+     FPN and TGCN computing in bf16 with f32 parameters; steady step ms and
+     peak memory beside cardiac_full's. The TGCN's kNN input of frame 1 (f32
+     nodes against the bf16 hidden state) is kept, and the kernel held on it
+     to the near-tie rule against the plain version on the f32 cast it is
+     given (a `knn` line, case "bf16 tgcn frame 1"), with the rows where it
+     differs from the plain path in the input's own dtypes recorded;
+  6c''. dp: an NCCL process group of one rank over a FileStore (no
+     network); cardiac_full through `train_cardiac_uda(use_mesh=True)`: the
+     FPN's outputs all-gathered, its gradients all-reduced, the eval counts
+     summed over the group; every loss within rtol 1e-4 of the cardiac_full
+     step of this run (same weights, same batch), the launches counted, the
+     state equal across the group, step ms beside the plain step's;
   6d. serve: the two saved states served by `serve.Predictor` at batch 256,
      the launch counters zeroed before and read after (the serving path
      launches no hand kernel: 0 of each). camus (ResNet50, 112², one class)
@@ -112,11 +128,21 @@ Phases, each printing one JSON line:
      reference's smoke) and 32, then one train-mode forward with a backward of
      a cross-entropy at batch 32; the kNN launch counter zeroed before each
      forward and read after it (12 Graphers, 12 launches); steady eval
-     images/s and peak memory.
+     images/s and peak memory;
+  8b. bf16_vig: pvig_s with `dtype=torch.bfloat16`, eval at batch 32: 12
+     kNN launches, finite bf16 logits beside the f32 model's, images/s
+     beside the f32 eval; the kNN kernel held on Grapher 0's bf16 input at
+     the Grapher 0-1 shape as in 6c';
+  9. tools: `utils/profiling.profile_trace` writes a Chrome trace of one
+     small train step holding CUDA kernels and the step's ranges,
+     `StepTimer` (synchronising the card) times four, and a `.pth` of the
+     full-width cardiac FPN under upstream's keys loads through
+     `Trainer.init_state(torch_init=...)` bit-equal.
 Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
-path driven, `cardiac_real step` and `serve` among them), the nvidia-smi
-line, and last
+path driven, `cardiac_real step`, `serve`, `bf16 cardiac_full step`, `dp
+cardiac_full step` and the f32 and bf16 pvig_s forwards among them), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
 """
@@ -879,7 +905,8 @@ def phase_full(card: str):
          run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
          cfg="cardiac_uda_config(temporal_graph=True, cyc_loss=True)",
          clips=list(batch["temp_imgs_source"].shape[:2]), cyc_frames=len(batch["cyc_imgs"]))
-    full_launches, full_step_ms = launches, step_ms
+    full = {"launches": launches, "steady_step_ms": step_ms, "peak_memory_gib": peak_gib,
+            "losses": {k: means[k] for k in means if k.endswith("loss")}}
     del trainer
     torch.cuda.empty_cache()
 
@@ -900,7 +927,235 @@ def phase_full(card: str):
          cfg="camus_echo_config(temporal_graph=True)")
     del trainer
     torch.cuda.empty_cache()
-    return full_launches, full_step_ms
+    return full
+
+
+def _recording(module, attr: str, keep: int):
+    """Wrap `module.attr`, a kNN graph builder, so that it keeps the inputs
+    of its first `keep` calls; returns (the real function, the calls)."""
+    real, seen = getattr(module, attr), []
+
+    def rec(x, y=None, k=9, dilation=1, relative_pos=None, *args, **kwargs):
+        if len(seen) < keep:
+            seen.append((x.detach().clone(), None if y is None else y.detach().clone(),
+                         k * dilation, relative_pos))
+        return real(x, y, k, dilation, relative_pos, *args, **kwargs)
+
+    setattr(module, attr, rec)
+    return real, seen
+
+
+def _knn_on_bf16(name: str, x, y, k: int, rel) -> dict:
+    """The kNN kernel on a path's bf16-derived input. Held to the existing
+    contract: against the plain version on the same f32 cast that the
+    wrapper gives the kernel, neighbours in order up to near ties within
+    KNN_TIE_TOL. Recorded beside it: the rows in which the kernel differs
+    from the plain path in the input's own dtypes (bf16 normalisation, as
+    the CPU path computes it) and the largest float64 gap there."""
+    from graphecho_torch.ops import knn
+
+    xf = x.float().contiguous()
+    yf = None if y is None else y.float().contiguous()
+    got = knn.launch_knn(xf, yf, k, True, rel)
+    want = knn.knn_reference(xf, yf, k, True, rel)
+    rows_differ, gap = knn.knn_tie_gap(xf, yf, rel, True, got, want)
+    check(gap <= KNN_TIE_TOL, f"knn {name}: {rows_differ} rows differ from the plain version, "
+                              f"float64 distance gap {gap} > {KNN_TIE_TOL}")
+    bf16_rows, bf16_gap = knn.knn_tie_gap(xf, yf, rel, True, got,
+                                          knn.knn_reference(x, y, k, True, rel))
+    b, n, c = x.shape
+    m = n if y is None else y.shape[1]
+    ms = cuda_ms(lambda: knn.launch_knn(xf, yf, k, True, rel))
+    plain_ms = cuda_ms(lambda: knn.knn_reference(xf, yf, k, True, rel))
+    ops, nbytes = knn_work(b, n, m, c, k, y is None, 0 if rel is None else rel.numel())
+    bound_ms, bound_by = bound(ops, nbytes)
+    out = dict(case=name, b=b, n=n, m=m, c=c, k=k, dtypes=[str(x.dtype), str(
+        None if y is None else y.dtype)], rows=b * n, rows_differ=rows_differ,
+        max_tie_gap=gap, vs_plain_in_input_dtypes={"rows_differ": bf16_rows,
+                                                   "max_gap": bf16_gap},
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    emit("knn", **out)
+    return out
+
+
+def phase_bf16_full(card: str, f32: dict) -> dict:
+    """`train_cardiac_uda(temporal_graph=True, cyc_loss=True)` with
+    `compute_dtype="bfloat16"` at full width through the entry point: one
+    step and validation counted as cardiac_full (8 kNN, 2 + 2 pairwise
+    launches), every loss finite, `temporal_graph_loss` and `cyc_loss` not
+    0, the parameters f32; the steady step ms and peak memory beside the f32
+    cardiac_full phase of this run. The TGCN's kNN input of frame 1 (f32
+    nodes against the bf16 hidden state) is kept and the kernel held on it
+    (`_knn_on_bf16`). Returns the launches."""
+    import dataclasses
+
+    from graphecho_torch import entrypoints
+    from graphecho_torch.config import cardiac_uda_config
+    from graphecho_torch.models import tgcn as tgcn_mod
+
+    cfg = cardiac_uda_config(temporal_graph=True, cyc_loss=True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    real, seen = _recording(tgcn_mod, "dilated_knn_graph", keep=2)
+    try:
+        trainer, launches, seconds = _drive(entrypoints.train_cardiac_uda, num_epochs=1,
+                                            steps_per_epoch=1, n_eval=2, cfg=cfg)
+    finally:
+        tgcn_mod.dilated_knn_graph = real
+    means = trainer.last_epoch_metrics
+    _check_losses(means, "bf16_full")
+    for key in (k for k in means if k.endswith("loss")):
+        check(math.isfinite(means[key]), f"bf16_full: {key} = {means[key]}")
+    check(means["temporal_graph_loss"] != 0 and means["cyc_loss"] != 0,
+          f"bf16_full: temporal_graph_loss {means['temporal_graph_loss']}, "
+          f"cyc_loss {means['cyc_loss']}")
+    t = cfg.tgcn.clip_shape[0]
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+          f"bf16_full: launches in one step {launches}, want 2, 2 and {t}")
+    state = trainer.state
+    check(state.net.module.dtype == state.tgcn.module.dtype == torch.bfloat16,
+          "bf16_full: the FPN or the TGCN does not compute in bf16")
+    check(all(p.dtype == torch.float32 for c in state.components()
+              for p in c.module.parameters()), "bf16_full: a parameter is not f32")
+    check(all(math.isfinite(d) for d in trainer.last_dices.values()),
+          f"bf16_full dice {trainer.last_dices}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = _steady_step_ms(trainer, n=2)
+    dices = trainer.last_dices
+    del trainer, state
+    torch.cuda.empty_cache()
+    x, y, k, _ = seen[1]
+    check(x.dtype == torch.float32 and y.dtype == torch.bfloat16 and tuple(x.shape) == (
+        TGCN_KNN[0], TGCN_KNN[1], TGCN_KNN[3]), f"bf16_full: TGCN kNN input {x.dtype} "
+        f"{tuple(x.shape)} against {y.dtype}")
+    knn_case = _knn_on_bf16("bf16 tgcn frame 1", x, y, k, None)
+    emit("bf16_full", losses={k: means[k] for k in means if k.endswith("loss")},
+         f32_losses=f32["losses"], dice=dices,
+         launches=launches, run_seconds=seconds, steady_step_ms=step_ms,
+         f32_steady_step_ms=f32["steady_step_ms"], step_ratio=step_ms / f32["steady_step_ms"],
+         peak_memory_gib=peak_gib, f32_peak_memory_gib=f32["peak_memory_gib"],
+         memory_ratio=peak_gib / f32["peak_memory_gib"], knn_tgcn=knn_case, card=card,
+         cfg="cardiac_uda_config(temporal_graph=True, cyc_loss=True), compute_dtype=bfloat16")
+    return launches
+
+
+def phase_dp(card: str, f32: dict) -> dict:
+    """One cardiac_full step through `Trainer(use_mesh=True)` over an NCCL
+    process group of one rank (a FileStore in a temporary directory: no
+    network), from the same weights and batch as the cardiac_full phase of
+    this run: every loss within rtol 1e-4 of that step's, the kernels
+    counted on this path, the steady step ms beside the plain step's, and
+    the replicated state checked equal over the group. Returns the
+    launches."""
+    import torch.distributed as dist
+
+    from graphecho_torch import entrypoints
+    from graphecho_torch.parallel.mesh import max_abs_spread
+
+    store = tempfile.mkdtemp(prefix="dp_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        trainer, launches, seconds = _drive(entrypoints.train_cardiac_uda, num_epochs=1,
+                                            steps_per_epoch=1, n_eval=2, temporal_graph=True,
+                                            cyc_loss=True, use_mesh=True)
+        mesh = trainer.mesh
+        check(mesh is not None and mesh.group is not None and mesh.size == 1,
+              f"dp: the trainer's mesh is {mesh}")
+        means = trainer.last_epoch_metrics
+        worst = 0.0
+        for key, want in f32["losses"].items():
+            got = means[key]
+            check(math.isfinite(got) and abs(got - want) <= 1e-4 * abs(want) + 1e-6,
+                  f"dp: {key} {got} vs the plain step's {want}")
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+        t = trainer.cfg.tgcn.clip_shape[0]
+        check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+              f"dp: launches in one step {launches}, want 2, 2 and {t}")
+        check(all(math.isfinite(d) for d in trainer.last_dices.values()),
+              f"dp dice {trainer.last_dices}")
+        spread = max_abs_spread(mesh, [p for c in trainer.state.components()
+                                       for p in c.module.parameters()])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = _steady_step_ms(trainer, n=2)
+        emit("dp", backend=dist.get_backend(), world_size=dist.get_world_size(),
+             losses={k: means[k] for k in f32["losses"]}, max_rel_loss_diff=worst,
+             dice=trainer.last_dices, launches=launches, run_seconds=seconds,
+             replicated_spread=spread, steady_step_ms=step_ms,
+             plain_steady_step_ms=f32["steady_step_ms"],
+             step_ratio=step_ms / f32["steady_step_ms"], peak_memory_gib=peak_gib, card=card,
+             cfg="cardiac_uda_config(temporal_graph=True, cyc_loss=True), use_mesh=True")
+        del trainer
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tools(card: str) -> None:
+    """The tooling on the card: `profile_trace` writes a Chrome trace of one
+    train step (a small config) holding CUDA kernels and the step's phase
+    ranges; `StepTimer`, synchronising the card, times three more; a `.pth`
+    of the full-width cardiac FPN under upstream's keys (`network`,
+    `module.` prefixes, `num_batches_tracked`) loads back through
+    `Trainer.init_state(torch_init=...)` bit-equal."""
+    from graphecho_torch.config import cardiac_uda_config
+    from graphecho_torch.train.state import create_train_state
+    from graphecho_torch.train.steps import build_models, make_train_step
+    from graphecho_torch.train.trainer import Trainer
+    from graphecho_torch.utils.profiling import StepTimer, profile_trace
+
+    cfg = _tiny_cfg()
+    rng = np.random.RandomState(11)
+    masks = np.zeros((2, 64, 64, 2), np.float32)
+    masks[:, 8:40, 8:40, 1] = 1.0
+    masks[..., 0] = 1.0 - masks[..., 1]
+    batch = {"imgs_source": (rng.rand(2, 64, 64, 1) * 0.6).astype(np.float32),
+             "imgs_target": (rng.rand(2, 64, 64, 1) * 0.6).astype(np.float32),
+             "masks": masks}
+    state = create_train_state(cfg, build_models(cfg), torch.device("cuda"))
+    step = make_train_step(cfg)
+    step(state, batch)  # warm-up: cuDNN's autotuning stays out of the trace
+    tmp = Path(tempfile.mkdtemp(prefix="tools_"))
+    try:
+        with profile_trace(str(tmp / "trace")):
+            step(state, batch)
+        path = tmp / "trace" / "trace.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        ranges = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("step.")})
+        check(kernels > 0 and "step.gmodule" in ranges,
+              f"tools: the trace holds {kernels} CUDA kernels and ranges {ranges}")
+        timer = StepTimer(warmup=1, device="cuda")
+        for _ in range(4):
+            with timer:
+                step(state, batch)
+        stats = timer.stats()
+        check(stats["steps"] == 4 and 0 < stats["min_s"] <= stats["mean_s"] <= stats["max_s"],
+              f"tools: StepTimer {stats}")
+        trace_mib = path.stat().st_size / 2 ** 20
+
+        cfg = cardiac_uda_config(graph_matching=False, discriminator=False)
+        fpn = build_models(cfg)["fpn"]
+        gen = torch.Generator().manual_seed(8)
+        weights = {k: torch.randn(v.shape, generator=gen) for k, v in fpn.state_dict().items()}
+        upstream = {f"module.{k}": v for k, v in weights.items()}
+        upstream.update({f"module.{k[:-len('running_mean')]}num_batches_tracked": torch.tensor(5)
+                         for k in weights if k.endswith("running_mean")})
+        pth = tmp / "net_10.pth"
+        torch.save({"network": upstream}, pth)
+        trainer = Trainer(cfg, steps_per_epoch=1)
+        loaded = trainer.init_state(torch_init=str(pth)).net.module.state_dict()
+        bad = [k for k in weights if not torch.equal(loaded[k].cpu(), weights[k])]
+        check(not bad and loaded[next(iter(weights))].is_cuda,
+              f"tools: {len(bad)} FPN tensors differ after the .pth import: {bad[:3]}")
+        emit("tools", trace_cuda_kernels=kernels, trace_step_ranges=ranges,
+             trace_mib=trace_mib, step_timer=stats, pth_tensors=len(weights),
+             pth_mib=pth.stat().st_size / 2 ** 20, card=card)
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def _serve_frames(cfg, n: int, seed: int) -> np.ndarray:
@@ -1371,10 +1626,10 @@ def phase_vig_reference():
          knn_launches=knn.LAUNCHES["knn"])
 
 
-def phase_vig(card: str) -> int:
+def phase_vig(card: str) -> tuple:
     """pvig_s at full width: eval at batch 4 and 32, one train step's forward
     and backward at batch 32; returns the kNN launches of the batch-32 eval
-    forward."""
+    forward and its images/s."""
     import torch.nn.functional as F
 
     from graphecho_torch.models.vig import pvig_s
@@ -1435,7 +1690,71 @@ def phase_vig(card: str) -> int:
          train_batch=32, train_loss=loss.item(), train_knn_launches=launches,
          train_fwd_bwd_s=train_s, train_peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          grad_norm=torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item(), card=card)
-    return evals[32]["knn_launches"]
+    return evals[32]["knn_launches"], 32 / (eval_ms / 1e3)
+
+
+def phase_bf16_vig(card: str, f32_images_per_s: float) -> int:
+    """pvig_s with `dtype=torch.bfloat16` at batch 32, eval: 12 kNN launches a
+    forward, bf16 logits of the right shape, finite, beside the f32 model's
+    from the same weights (largest error over the largest logit, top-1
+    agreement, recorded); steady images/s beside the f32 eval of the vig
+    phase. Grapher 0's kNN input (bf16 nodes, bf16 pooled keys, the f32
+    relative-position bias) is kept and the kernel held on it at the Grapher
+    0-1 shape (`_knn_on_bf16`). Returns the launches of one forward."""
+    from graphecho_torch.models import vig as vig_mod
+    from graphecho_torch.ops import knn
+
+    x = torch.randn(32, 3, 224, 224, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(22))
+    with torch.no_grad():
+        want = vig_mod.pvig_s(n_classes=1000).eval()(x).float()
+    torch.cuda.empty_cache()
+    model = vig_mod.pvig_s(n_classes=1000, dtype=torch.bfloat16).eval()
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16_vig: a parameter is not f32")
+    real, seen = _recording(vig_mod, "dilated_knn_graph", keep=1)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        knn.reset_launch_counts()
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+        launches = knn.LAUNCHES["knn"]
+    finally:
+        vig_mod.dilated_knn_graph = real
+    check(launches == 12, f"bf16 pvig_s eval: {launches} kNN launches, not 12")
+    check(logits.dtype == torch.bfloat16 and logits.shape == (32, 1000)
+          and bool(torch.isfinite(logits).all()), f"bf16 pvig_s eval: logits {logits.dtype} "
+          f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel_err = ((logits.float() - want).abs().max() / want.abs().max()).item()
+    top1 = (logits.float().argmax(-1) == want.argmax(-1)).float().mean().item()
+    times = []
+    with torch.no_grad():
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+    eval_ms = statistics.median(times) * 1e3
+    nodes, keys, k, rel = seen[0]
+    b, n, c = nodes.shape
+    check(nodes.dtype == keys.dtype == torch.bfloat16 and (b, n, keys.shape[1], c, k) == (
+        KNN_BATCH, *KNN_SHAPES[0][1:]), f"bf16_vig: Grapher 0's kNN input {nodes.dtype} "
+        f"{tuple(nodes.shape)} against {tuple(keys.shape)}, k {k}")
+    knn_case = _knn_on_bf16("bf16 graphers 0-1", nodes, keys, k, rel)
+    emit("bf16_vig", cfg="pvig_s(n_classes=1000, dtype=torch.bfloat16)", img=224,
+         eval_batch=32, knn_launches=launches, eval_ms=eval_ms,
+         eval_images_per_s=32 / (eval_ms / 1e3), f32_eval_images_per_s=f32_images_per_s,
+         speedup=32 / (eval_ms / 1e3) / f32_images_per_s, peak_memory_gib=peak_gib,
+         logits_rel_err_vs_f32=rel_err, top1_agreement_vs_f32=top1, knn_graphers_0_1=knn_case,
+         card=card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1467,22 +1786,29 @@ def main() -> int:
     ckpt_root = Path(tempfile.mkdtemp(prefix="trained_"))
     try:
         camus, ckpts = phase_main(card, ckpt_root)
-        full, full_step_ms = phase_full(card)
+        full = phase_full(card)
+        bf16 = phase_bf16_full(card, full)
+        dp = phase_dp(card, full)
         serve = phase_serve(card, ckpts)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    real = phase_cardiac_real(card, full_step_ms)
+    real = phase_cardiac_real(card, full["steady_step_ms"])
     phase_vig_reference()
-    pvig = phase_vig(card)
+    pvig, pvig_images_per_s = phase_vig(card)
+    pvig_bf16 = phase_bf16_vig(card, pvig_images_per_s)
+    phase_tools(card)
     rows["knn"] = knn_row
-    # launches per cardiac_full step, this slice's path; beside them each path's
+    # launches per cardiac_full step, the train step's path; beside them each path's
     for name, row in rows.items():
-        row["launches"] = full[name]
-        row["launches_by_path"] = {"cardiac_full step": full[name],
+        row["launches"] = full["launches"][name]
+        row["launches_by_path"] = {"cardiac_full step": full["launches"][name],
                                    "camus 3 steps": camus[name],
                                    "cardiac_real step": real[name],
-                                   "serve": serve[name]}
+                                   "serve": serve[name],
+                                   "bf16 cardiac_full step": bf16[name],
+                                   "dp cardiac_full step": dp[name]}
     knn_row["launches_by_path"]["pvig_s forward"] = pvig
+    knn_row["launches_by_path"]["bf16 pvig_s forward"] = pvig_bf16
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,9 @@
 
 A copy of `graphecho_tpu/config.py` (the port imports nothing of the JAX
 package): the same frozen dataclasses, defaults and experiment factories, so a
-config built here describes the same experiment as its JAX twin. Knobs that
-this slice of the port does not implement yet raise `NotImplementedError`
-where they are read (`graphecho_torch.train.steps.check_supported`).
+config built here describes the same experiment as its JAX twin; every knob
+is implemented (`graphecho_torch.train.steps.check_supported` checks the
+values of `compute_dtype` and `mesh_data`).
 """
 
 from __future__ import annotations

@@ -7,7 +7,11 @@ the (synthetic) data, then run the epoch loop with per-epoch validation.
 They run on CUDA unless `device` names another device; with no GPU and no
 `device` they raise. `cfg` replaces the paper's configuration as a whole (the
 tests run a shrunken one). With `checkpoint_dir` a run saves its whole state
-after each epoch and resumes from the latest checkpoint there.
+after each epoch and resumes from the latest checkpoint there. With
+`use_mesh` the run is data parallel over the process group
+(`parallel/mesh.py`): every rank draws the same global synthetic batch and
+trains its row block of it (`shard_batch`). `torch_init` names an upstream
+`.pth` for the FPN.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 
 from graphecho_torch.config import ExperimentConfig, camus_echo_config, cardiac_uda_config
 from graphecho_torch.data.synthetic import SyntheticEchoData
+from graphecho_torch.parallel.mesh import shard_batch
 from graphecho_torch.train.trainer import Trainer
 
 
@@ -30,7 +35,8 @@ def _run(cfg: ExperimentConfig, steps_per_epoch: int, num_epochs: Optional[int],
 
     def batches():
         for _ in range(steps_per_epoch):
-            yield data.train_batch()
+            batch = data.train_batch()
+            yield batch if trainer.mesh is None else shard_batch(trainer.mesh, batch)
 
     eval_fns = {"Inner-Val": lambda: data.eval_batches(n_eval),
                 "Target Domain - Valid": lambda: data.eval_batches(n_eval)}

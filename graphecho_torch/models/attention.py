@@ -12,6 +12,11 @@
 As in the JAX package, an optional boolean `key_mask` keeps padded node slots
 out of the softmax. Dropout draws its mask from the caller's
 `torch.Generator`, so a run is reproducible from its seed.
+
+`dtype` is flax's: the linears compute in it and the LayerNorm in f32 with a
+`dtype` output (`models/backbones.py::set_compute_dtype`); the attention
+logits accumulate in f32 (`preferred_element_type`) and are cast back to the
+values' dtype for the weighted sum, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from graphecho_torch.models.backbones import LayerNorm, Linear, set_compute_dtype
 from graphecho_torch.models.initializers import set_init
 
 _NEG_INF = -1e9
@@ -36,19 +42,21 @@ def dropout(x: torch.Tensor, p: float, train: bool,
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-def linear(cin: int, cout: int, bias: bool = True, init="lecun") -> nn.Linear:
-    return set_init(nn.Linear(cin, cout, bias=bias), init)
+def linear(cin: int, cout: int, bias: bool = True, init="lecun") -> Linear:
+    return set_init(Linear(cin, cout, bias=bias), init)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, model_dim: int = 256, num_heads: int = 1, dropout: float = 0.0):
+    def __init__(self, model_dim: int = 256, num_heads: int = 1, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.model_dim, self.num_heads, self.p = model_dim, num_heads, dropout
         self.linear_k = linear(model_dim, model_dim)
         self.linear_v = linear(model_dim, model_dim)
         self.linear_q = linear(model_dim, model_dim)
         self.linear_final = linear(model_dim, model_dim)
-        self.layer_norm = nn.LayerNorm(model_dim, eps=1e-5)
+        self.layer_norm = LayerNorm(model_dim, eps=1e-5)
+        set_compute_dtype(self, dtype)
 
     def forward(self, key: torch.Tensor, value: torch.Tensor, query: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None, train: bool = False,
@@ -69,13 +77,14 @@ class MultiHeadAttention(nn.Module):
 
         # reference quirk: scale = (dim_per_head // num_heads) ** -0.5
         scale = float(dph // h) ** -0.5
-        attn = torch.einsum("hqd,hkd->hqk", q, k) * scale
+        acc = torch.promote_types(q.dtype, torch.float32)
+        attn = torch.einsum("hqd,hkd->hqk", q.to(acc), k.to(acc)) * scale
         if key_mask is not None:
             attn = torch.where(key_mask[None, None, :], attn, _NEG_INF)
         attn = torch.softmax(attn, dim=-1)
         attn = dropout(attn, self.p, train, generator)
 
-        context = torch.einsum("hqk,hkd->hqd", attn, v)
+        context = torch.einsum("hqk,hkd->hqd", attn.to(v.dtype), v)
         context = context.transpose(0, 1).reshape(query.shape[0], self.model_dim)
         out = dropout(self.linear_final(context), self.p, train, generator)
         out = self.layer_norm(residual + out)
@@ -85,13 +94,15 @@ class MultiHeadAttention(nn.Module):
 class CrossGraph(nn.Module):
     """Bi-directional cross-graph node update (`transformer.py:115-160`)."""
 
-    def __init__(self, model_dim: int = 256, dropout: float = 0.0):
+    def __init__(self, model_dim: int = 256, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.p = dropout
         self.linear_edge = linear(model_dim, model_dim)
         self.linear_node1 = linear(model_dim, model_dim)
         self.linear_final = linear(model_dim, model_dim)
-        self.layer_norm = nn.LayerNorm(model_dim, eps=1e-5)
+        self.layer_norm = LayerNorm(model_dim, eps=1e-5)
+        set_compute_dtype(self, dtype)
 
     def forward(self, node_1: torch.Tensor, node_2: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None

@@ -19,7 +19,11 @@ is not flax's.
 `BatchNorm2d` computes what flax's BatchNorm in the JAX package computes,
 which is not what `torch.nn.BatchNorm2d` computes: the running variance takes
 the BIASED batch variance (torch folds in the unbiased one). Momentum 0.1 here
-is flax's 0.9.
+is flax's 0.9. Given a process group of more than one rank
+(`set_batch_norm_group`), its train-mode statistics are those of the batch
+across every rank, as GSPMD's BatchNorm over a sharded batch gives them: the
+mean and the biased variance are summed over the ranks with a gradient
+through the sum, and the running stats fold in the global values.
 
 With `remat`, each VGG block and each Bottleneck runs under
 `torch.utils.checkpoint` (the JAX package's per-block `nn.remat`): its
@@ -80,6 +84,31 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` with flax's `dtype`: input, weight and bias cast to
+    `dtype`, which the output keeps."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` with flax's `dtype`: computed in f32 (or the input's
+    wider type), cast to `dtype`."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return super().forward(x.to(torch.promote_types(x.dtype, torch.float32))).to(self.dtype)
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm over NCHW with flax's running-statistics update.
 
@@ -87,9 +116,11 @@ class BatchNorm2d(nn.Module):
     and the biased batch variance into the running stats, by hand, with
     momentum 0.1 (flax 0.9); eval mode uses the running stats. With a
     `dtype`, the statistics and the affine are computed in f32 and the
-    output is cast to `dtype`, as flax's `_normalize` does."""
+    output is cast to `dtype`, as flax's `_normalize` does. With a `group`
+    of more than one rank the train-mode statistics are global."""
 
     dtype: Optional[torch.dtype] = None
+    group = None  # a torch.distributed process group (`set_batch_norm_group`)
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -109,12 +140,36 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.group is not None and self.group.size() > 1:
+            return self._normalize_global(x)
         if not _stats_frozen:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _normalize_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the rows of every rank: two sums over the group
+        (the mean with the row count, then the centred squares), each with
+        its gradient, so the backward is that of one BatchNorm over the
+        global batch."""
+        # imported here: the `parallel` package imports the models
+        from graphecho_torch.parallel.mesh import all_reduce_sum
+
+        dims = (0, 2, 3)
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        sums = all_reduce_sum(torch.cat([x.sum(dims), count]), self.group)
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        xc = x - mean[None, :, None, None]
+        var = all_reduce_sum((xc * xc).sum(dims), self.group) / n
+        if not _stats_frozen:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return xc * scale[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class GroupNorm(nn.GroupNorm):
@@ -134,11 +189,21 @@ def conv2d(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
-    """Give every conv and norm under `module` the compute `dtype` (None:
+    """Give every layer under `module` that has flax's `dtype` (convs,
+    linears, norms, the ViG's grouped convs) the compute `dtype` (None:
     compute in the input's dtype)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, BatchNorm2d, GroupNorm)):
+        if hasattr(type(m), "dtype"):  # a layer class that declares flax's `dtype`
             m.dtype = dtype
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Compute the train-mode statistics of every `BatchNorm2d` under
+    `module` over the ranks of the process `group` (None: this process's
+    batch only)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 class VGG16(nn.Module):

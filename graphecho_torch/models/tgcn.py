@@ -25,6 +25,13 @@ feature maps are NCHW. Module names are the flax names, so
 tree; `pos_embed` is (T, 1, C, H, W). The queues are explicit state, passed
 in and returned. The dropouts (0.1, hard-coded upstream) draw their masks
 from the generator given to `forward`, through `attention.dropout`.
+
+`dtype` is the JAX TGCN's `dtype` (`graphecho_tpu/models/tgcn.py:44-86`) on
+every conv, BatchNorm, linear, LayerNorm and the attention; the parameters
+stay f32 (`models/backbones.py::set_compute_dtype`). The f32 position
+embedding lifts each frame's nodes to f32, as JAX promotes them; the
+recurrent hidden state takes the graph conv's output dtype, not the clips'
+(`:172-176`).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from torch import nn
 from graphecho_torch.config import SinkhornConfig, TGCNConfig
 from graphecho_torch.models import attention
 from graphecho_torch.models.attention import MultiHeadAttention, linear
-from graphecho_torch.models.backbones import BatchNorm2d, conv2d
+from graphecho_torch.models.backbones import BatchNorm2d, LayerNorm, conv2d, set_compute_dtype
 from graphecho_torch.models.vig import MRConv, _act
 from graphecho_torch.ops.grl import gradient_reversal
 from graphecho_torch.ops.knn import dilated_knn_graph
@@ -63,9 +70,10 @@ def queue_update(queue: torch.Tensor, feats: torch.Tensor, labels: torch.Tensor,
 
 
 class TGCN(nn.Module):
-    def __init__(self, cfg: TGCNConfig, sinkhorn: SinkhornConfig = SinkhornConfig()):
+    def __init__(self, cfg: TGCNConfig, sinkhorn: SinkhornConfig = SinkhornConfig(),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg, self.sinkhorn = cfg, sinkhorn
+        self.cfg, self.sinkhorn, self.dtype = cfg, sinkhorn, dtype
         c, h = cfg.input_dim, cfg.hidden_dim
         t, gh, gw = cfg.clip_shape
         # the 3x3/s2 VALID head needs >= 3 nodes a side, or its mean is NaN
@@ -85,9 +93,10 @@ class TGCN(nn.Module):
             for i in range(3):
                 setattr(self, f"node_dis_{i}", linear(c, c, init=("normal", 0.01)))
                 setattr(self, f"node_dis_ln_{i}",
-                        nn.LayerNorm(c, eps=1e-5, elementwise_affine=False))
+                        LayerNorm(c, eps=1e-5, elementwise_affine=False))
             self.node_dis_out = linear(c, 1, init=("normal", 0.01))
         self.gelu = _act("gelu")
+        set_compute_dtype(self, dtype)
 
     def forward(self, pyramid_clips: Sequence[torch.Tensor],
                 source_nodes: torch.Tensor, source_valid: torch.Tensor,
@@ -113,7 +122,8 @@ class TGCN(nn.Module):
                             for lvl in pyramid_clips], dim=1)
         frames = frames.reshape(b, t_len, -1, gh, gw)
 
-        hidden = frames.new_zeros(b, gh * gw, cfg.hidden_dim)
+        # the graph conv's output dtype, which the recurrence carries
+        hidden = frames.new_zeros(b, gh * gw, cfg.hidden_dim, dtype=self.dtype or frames.dtype)
         for t in range(t_len):
             x = self.gelu(self.mlp_bn(self.mlp_conv1(frames[:, t])))
             x = attention.dropout(x, DROPOUT, train, generator)
@@ -133,7 +143,9 @@ class TGCN(nn.Module):
         if cfg.cluster_method == "momentum_queue":
             q = F.normalize(output_f, dim=1, eps=1e-12)
             # the loss reads the bank as it was before this step's update
-            l_pos = q @ torch.cat([queue_s, queue_t], dim=-1).detach()
+            bank = torch.cat([queue_s, queue_t], dim=-1).detach()
+            acc = torch.promote_types(q.dtype, bank.dtype)
+            l_pos = q.to(acc) @ bank.to(acc)
             qd = q.detach()
             queue_s = queue_update(queue_s, qd[:half], idx_s, cfg.queue_momentum)
             queue_t = queue_update(queue_t, qd[half:], idx_t, cfg.queue_momentum)

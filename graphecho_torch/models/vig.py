@@ -17,6 +17,15 @@ the tanh approximation, flax's `nn.gelu` default. BatchNorm is the port's
 flax-rule `BatchNorm2d` (biased running variance, momentum 0.1 = flax 0.9).
 Train mode is `module.train()`; drop-path, the head's dropout and the
 stochastic graph draw from the `torch.Generator` passed to `forward`.
+
+`dtype` is flax's `dtype` on every conv and BatchNorm the JAX `vig.py` gives
+one, as in the FPN (`models/backbones.py::set_compute_dtype`): with
+`torch.bfloat16` the convs (the grouped 1x1 ones too) cast their input,
+weight and bias to bf16, the BatchNorms compute in f32 and return bf16, and
+the parameters stay f32. The rest follows the inputs' types as JAX promotes
+them: the f32 position embedding lifts the stem's output to f32, so the
+first stage's residual stream stays f32 until the first Downsample; the kNN
+graph is built on the bf16 nodes with f32 distances (`ops/knn.py`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from torch import nn
 
 from graphecho_torch.device import resolve_device
 from graphecho_torch.models.attention import dropout
-from graphecho_torch.models.backbones import BatchNorm2d, conv2d
+from graphecho_torch.models.backbones import BatchNorm2d, conv2d, set_compute_dtype
 from graphecho_torch.models.initializers import initialize, set_init
 from graphecho_torch.ops.knn import dilated_knn_graph, gather_neighbors
 
@@ -92,25 +101,34 @@ def drop_path(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def grouped_pointwise(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+def grouped_pointwise(x: torch.Tensor, conv: nn.Conv1d,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """`conv(x)` for a grouped 1x1 `nn.Conv1d` on (B, C, L), as one batched
-    matrix product per group. The same sums as the convolution; on an H100
-    cuDNN's grouped kernel wraps each call in layout transposes and takes
-    ~14x as long at the pvig_s widths (PERF.md)."""
+    matrix product per group, with input, weight and bias cast to `dtype`
+    when one is given. The same sums as the convolution; on an H100 cuDNN's
+    grouped kernel wraps each call in layout transposes and takes ~14x as
+    long at the pvig_s widths (PERF.md)."""
     b, cin, length = x.shape
     g = conv.groups
     w = conv.weight.reshape(g, -1, cin // g)  # (g, Cout/g, Cin/g)
+    bias = conv.bias
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+        bias = None if bias is None else bias.to(dtype)
     out = torch.matmul(w, x.reshape(b, g, cin // g, length)).reshape(b, -1, length)
-    return out if conv.bias is None else out + conv.bias[:, None]
+    return out if bias is None else out + bias[:, None]
 
 
 class BasicConv(nn.Module):
     """Grouped 1x1 convs (groups 4, He init) + optional BatchNorm + act on
     (B, C, L) (`vig.py:476-500`). The weights are `nn.Conv1d`'s; the product
-    is `grouped_pointwise`."""
+    is `grouped_pointwise`, in `dtype`."""
+
+    dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_channels: int, channels: Sequence[int], act: str = "relu",
-                 norm: Optional[str] = None, bias: bool = True, groups: int = 4):
+                 norm: Optional[str] = None, bias: bool = True, groups: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = len(channels)
         self.act = _act(act) if act else None
@@ -122,10 +140,11 @@ class BasicConv(nn.Module):
             if self.has_bn:
                 setattr(self, f"bn_{i}", BatchNorm2d(ch))
             prev = ch
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = grouped_pointwise(x, getattr(self, f"conv_{i}"))
+            x = grouped_pointwise(x, getattr(self, f"conv_{i}"), self.dtype)
             if self.has_bn:  # BatchNorm2d on a (B, C, L, 1) view
                 x = getattr(self, f"bn_{i}")(x.unsqueeze(-1)).squeeze(-1)
             if self.act is not None:
@@ -142,9 +161,10 @@ class MRConv(nn.Module):
     which matters because the following conv is grouped."""
 
     def __init__(self, in_channels: int, out_channels: int, act: str = "relu",
-                 norm: Optional[str] = None, bias: bool = True):
+                 norm: Optional[str] = None, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.nn = BasicConv(2 * in_channels, [out_channels], act, norm, bias)
+        self.nn = BasicConv(2 * in_channels, [out_channels], act, norm, bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor, nn_idx: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -159,9 +179,10 @@ class EdgeConv(nn.Module):
     """Edge conv with max aggregation (`vig.py:108-123`)."""
 
     def __init__(self, in_channels: int, out_channels: int, act: str = "relu",
-                 norm: Optional[str] = None, bias: bool = True):
+                 norm: Optional[str] = None, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.nn = BasicConv(2 * in_channels, [out_channels], act, norm, bias)
+        self.nn = BasicConv(2 * in_channels, [out_channels], act, norm, bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor, nn_idx: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -177,10 +198,11 @@ class GraphSAGE(nn.Module):
     """GraphSAGE conv (`vig.py:126-141`)."""
 
     def __init__(self, in_channels: int, out_channels: int, act: str = "relu",
-                 norm: Optional[str] = None, bias: bool = True):
+                 norm: Optional[str] = None, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.nn1 = BasicConv(in_channels, [in_channels], act, norm, bias)
-        self.nn2 = BasicConv(2 * in_channels, [out_channels], act, norm, bias)
+        self.nn1 = BasicConv(in_channels, [in_channels], act, norm, bias, dtype=dtype)
+        self.nn2 = BasicConv(2 * in_channels, [out_channels], act, norm, bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor, nn_idx: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -195,9 +217,10 @@ class GINConv(nn.Module):
     """GIN conv (`vig.py:144-160`) with a learned eps, zero at init."""
 
     def __init__(self, in_channels: int, out_channels: int, act: str = "relu",
-                 norm: Optional[str] = None, bias: bool = True):
+                 norm: Optional[str] = None, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.nn = BasicConv(in_channels, [out_channels], act, norm, bias)
+        self.nn = BasicConv(in_channels, [out_channels], act, norm, bias, dtype=dtype)
         self.eps = nn.Parameter(torch.zeros(1))
 
     def forward(self, x: torch.Tensor, nn_idx: torch.Tensor,
@@ -213,9 +236,10 @@ class GraphConv(nn.Module):
     """Dispatcher (`vig.py:163-181`)."""
 
     def __init__(self, in_channels: int, out_channels: int, conv: str = "edge",
-                 act: str = "relu", norm: Optional[str] = None, bias: bool = True):
+                 act: str = "relu", norm: Optional[str] = None, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.gconv = _GRAPH_CONVS[conv](in_channels, out_channels, act, norm, bias)
+        self.gconv = _GRAPH_CONVS[conv](in_channels, out_channels, act, norm, bias, dtype)
 
     def forward(self, x: torch.Tensor, nn_idx: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -229,11 +253,11 @@ class DyGraphConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
                  dilation: int = 1, conv: str = "edge", act: str = "relu",
                  norm: Optional[str] = None, bias: bool = True, stochastic: bool = False,
-                 r: int = 1):
+                 r: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_size, self.dilation = kernel_size, dilation
         self.stochastic, self.r = stochastic, r
-        self.gc = GraphConv(in_channels, out_channels, conv, act, norm, bias)
+        self.gc = GraphConv(in_channels, out_channels, conv, act, norm, bias, dtype)
 
     def forward(self, x: torch.Tensor, relative_pos: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -256,7 +280,8 @@ class Grapher(nn.Module):
     def __init__(self, in_channels: int, kernel_size: int = 9, dilation: int = 1,
                  conv: str = "edge", act: str = "relu", norm: Optional[str] = None,
                  bias: bool = True, stochastic: bool = False, r: int = 1,
-                 drop_path_rate: float = 0.0, relative_pos: bool = False):
+                 drop_path_rate: float = 0.0, relative_pos: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_channels, self.r = in_channels, r  # the bias follows the input's n
         self.drop_path_rate, self.relative_pos = drop_path_rate, relative_pos
@@ -266,6 +291,7 @@ class Grapher(nn.Module):
                                       conv, act, norm, bias, stochastic, r)
         self.fc2 = conv2d(in_channels * 2, in_channels, 1)
         self.bn2 = BatchNorm2d(in_channels)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -284,13 +310,14 @@ class FFN(nn.Module):
     """1x1-conv MLP with a drop-path residual (`vig.py:524-546`)."""
 
     def __init__(self, in_channels: int, hidden: int, out: int, act: str = "relu",
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.act, self.drop_path_rate = _act(act), drop_path_rate
         self.fc1 = conv2d(in_channels, hidden, 1)
         self.bn1 = BatchNorm2d(hidden)
         self.fc2 = conv2d(hidden, out, 1)
         self.bn2 = BatchNorm2d(out)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -303,7 +330,8 @@ class Stem(nn.Module):
     """Two stride-2 3x3 convs and a stride-1 one, each padded 1 on every side
     as the reference's `padding=1` (`vig.py:549-568`)."""
 
-    def __init__(self, in_channels: int, out_dim: int, act: str = "relu"):
+    def __init__(self, in_channels: int, out_dim: int, act: str = "relu",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.act = _act(act)
         self.conv1 = conv2d(in_channels, out_dim // 2, 3, 2, 1)
@@ -312,6 +340,7 @@ class Stem(nn.Module):
         self.bn2 = BatchNorm2d(out_dim)
         self.conv3 = conv2d(out_dim, out_dim, 3, 1, 1)
         self.bn3 = BatchNorm2d(out_dim)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.act(self.bn1(self.conv1(x)))
@@ -322,10 +351,11 @@ class Stem(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3x3 conv, padding 1, + BatchNorm (`vig.py:571-583`)."""
 
-    def __init__(self, in_channels: int, out_dim: int):
+    def __init__(self, in_channels: int, out_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = conv2d(in_channels, out_dim, 3, 2, 1)
         self.bn = BatchNorm2d(out_dim)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))
@@ -334,14 +364,15 @@ class Downsample(nn.Module):
 class DeepGCN(nn.Module):
     """Pyramid ViG classifier (`vig.py:586-651`): NCHW images -> (B, n_classes)
     logits. The Grapher of global index `idx` in stage i reduces its keys by
-    [4, 2, 1, 1][i] and dilates by min(idx // 4 + 1, 49 // k)."""
+    [4, 2, 1, 1][i] and dilates by min(idx // 4 + 1, 49 // k). `dtype` reaches
+    every conv and BatchNorm, the head's included."""
 
     def __init__(self, blocks: Sequence[int] = (2, 2, 6, 2),
                  channels: Sequence[int] = (48, 96, 240, 384), k: int = 9,
                  conv: str = "mr", act: str = "gelu", norm: str = "batch", bias: bool = True,
                  stochastic: bool = False, drop_path_rate: float = 0.0,
                  dropout: float = 0.0, n_classes: int = 1000, img_size: int = 224,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.blocks = tuple(blocks)
         self.act, self.p_dropout = _act(act), dropout
@@ -366,6 +397,7 @@ class DeepGCN(nn.Module):
         self.pred_conv1 = conv2d(channels[-1], 1024, 1)
         self.pred_bn = BatchNorm2d(1024)
         self.pred_conv2 = conv2d(1024, n_classes, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

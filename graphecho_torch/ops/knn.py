@@ -40,12 +40,17 @@ def reset_launch_counts() -> None:
 # ----------------------------------------------------------------- plain version
 def pairwise_sq_distance(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, N, C), y: (B, M, C) -> (B, N, M) squared Euclidean distances,
-    without gradient like the reference's `torch.no_grad()` (`vig.py:240,270`)."""
+    without gradient like the reference's `torch.no_grad()` (`vig.py:240,270`).
+
+    The dtypes are the JAX package's: the squared norms in the input dtype,
+    the inner product accumulated in f32 (`preferred_element_type`) on the
+    inputs' exact f32 values, so bf16 inputs give an f32 matrix."""
     x = x.detach()
     y = x if y is None else y.detach()
     x_sq = torch.sum(x * x, dim=-1, keepdim=True)
     y_sq = torch.sum(y * y, dim=-1, keepdim=True)
-    inner = torch.bmm(x, y.transpose(1, 2))
+    acc = torch.promote_types(torch.promote_types(x.dtype, y.dtype), torch.float32)
+    inner = torch.bmm(x.to(acc), y.to(acc).transpose(1, 2))
     return x_sq - 2.0 * inner + y_sq.transpose(-2, -1)
 
 

@@ -12,7 +12,8 @@ of the camus Predictor's inference function (`serve.py`, random weights, as
 `python -m graphecho_torch.bench` builds it) on a resident batch of 256. Runs
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. `--remat` and `--fused-fpn`
-switch those model options on. Prints one JSON object: the steady step time,
+switch those model options on; `--bf16` computes the step's FPN and TGCN (or
+pvig_s) in bf16 (`ModelConfig.compute_dtype`). Prints one JSON object: the steady step time,
 the peak device memory of the timed steps, the device's busy time per step
 (the union of its kernel intervals) and idle share, the number of kernel
 launches per step, the
@@ -88,9 +89,11 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
 
 def _step_fn(recipe: str, n: int, **model_options) -> Callable[[int], None]:
     """Step i (< n) of the recipe, its inputs made beforehand; `model_options`
-    replace fields of its `ModelConfig` (remat, fused_fpn_forwards)."""
+    replace fields of its `ModelConfig` (remat, fused_fpn_forwards,
+    compute_dtype)."""
     if recipe == "pvig_s":
-        model = pvig_s(n_classes=1000).eval()
+        bf16 = model_options.get("compute_dtype") == "bfloat16"
+        model = pvig_s(n_classes=1000, dtype=torch.bfloat16 if bf16 else None).eval()
         x = torch.randn(PVIG_BATCH, 3, 224, 224, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
 
@@ -210,9 +213,13 @@ def main() -> None:
                         help="recompute the backbone blocks' activations in the backward")
     parser.add_argument("--fused-fpn", action="store_true",
                         help="one FPN call over the source, target and clip frames")
+    parser.add_argument("--bf16", action="store_true",
+                        help="compute the FPN and the TGCN (or pvig_s) in bf16")
     args = parser.parse_args()
     options = {k: True for k, on in (("remat", args.remat),
                                      ("fused_fpn_forwards", args.fused_fpn)) if on}
+    if args.bf16:
+        options["compute_dtype"] = "bfloat16"
     print(json.dumps(profile(args.recipe, args.steps, args.warmup, **options)), flush=True)
 
 

@@ -57,14 +57,25 @@ def _proc() -> Dict[str, int]:
     return {"process_index": 0, "process_count": 1}
 
 
-def _check_multihost() -> None:
-    """Several processes would each train on their shard with nothing
-    averaging the gradients: refuse until the data-parallel slice brings the
-    all-reduce."""
-    if _proc()["process_count"] > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported to graphecho_torch yet; it comes with "
-            "the data-parallel slice (ROADMAP.md, Queue 1)")
+def _check_multihost(cfg: ExperimentConfig, use_mesh: bool) -> None:
+    """Multi-process data parallelism covers every branch: each rank's
+    loaders give its row block of every entry, the clip halves travel as
+    separate source and target keys, and the step gathers the FPN's outputs
+    into the global batch before the losses (`train/steps.py`), so no entry
+    has to hold whole clips per rank. What has to hold (the JAX package's
+    rule, `graphecho_tpu/real_training.py:59-80`, for one device per
+    process): several processes train one model only through the mesh, and
+    a `mesh_data` names the whole world."""
+    n = _proc()["process_count"]
+    if n <= 1:
+        return
+    if not use_mesh:
+        raise ValueError(
+            f"{n} processes without --use-mesh would each train their own model on their "
+            "shard; pass --use-mesh (one process per device)")
+    if cfg.train.mesh_data not in (None, n):
+        raise ValueError(f"mesh_data={cfg.train.mesh_data} but {n} processes: the port runs "
+                         "one process per device")
 
 
 def _batches(source_loader: DataLoader, cfg: ExperimentConfig,
@@ -119,7 +130,7 @@ def run_camus_echo(args, cfg: Optional[ExperimentConfig] = None, device=None) ->
             graph_matching=not args.no_graph_matching,
             discriminator=not args.no_discriminator,
             temporal_graph=args.temporal_graph)
-    _check_multihost()
+    _check_multihost(cfg, args.use_mesh)
     d = cfg.data
     src_train = DataLoaderCamus(args.camus_root, stage="train",
                                 img_res=d.img_res, img_crop=d.img_crop)
@@ -192,7 +203,7 @@ def run_cardiac_uda(args, cfg: Optional[ExperimentConfig] = None, device=None) -
             discriminator=not args.no_discriminator,
             temporal_graph=args.temporal_graph,
             cyc_loss=args.cyc_loss)
-    _check_multihost()
+    _check_multihost(cfg, args.use_mesh)
     d = cfg.data
     view = (d.view_num,)
     dims = dict(spatial_size=d.img_res[0], crop_size=d.img_crop[0],

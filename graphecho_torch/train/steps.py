@@ -17,54 +17,67 @@ parts are reported as `tgcn_*` and `temp_*`.
 
 Batches arrive as NHWC arrays, the JAX package's contract, and are moved to
 the state's device and transposed to NCHW once, at entry.
+
+`ModelConfig.compute_dtype="bfloat16"` follows the JAX package's dtype path
+(`graphecho_tpu/train/steps.py:60-81`): the FPN and the TGCN compute in bf16;
+the GModule and the discriminators are built without a dtype, so flax
+promotes their bf16 inputs with their f32 parameters to f32, which the port
+does with a cast at their entry (the pairwise-MLP kernels keep taking f32);
+the losses compute in f32; the parameters and optimizer states stay f32.
+
+With a `parallel.mesh.Mesh`, the step is data parallel over its ranks with
+the semantics of one step on the global batch (`parallel/mesh.py`): each
+rank's batch is its row block of every entry; the FPN runs on the rank's
+rows with global BatchNorm statistics and its outputs are all-gathered with
+autograd; everything after it runs on the global batch, the same on every
+rank, from the step generator that every rank holds equal; the FPN's
+gradients are summed over the ranks before the update, the replicated
+components' averaged (equal on every rank up to the card's atomics).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
 from graphecho_torch.config import ExperimentConfig
+from graphecho_torch.models.backbones import set_batch_norm_group
 from graphecho_torch.models.discriminator import Discriminator
 from graphecho_torch.models.fpn import FPN
 from graphecho_torch.models.graph_matching import GModule
 from graphecho_torch.models.tgcn import TGCN
 from graphecho_torch.ops.sampling import masks_to_boxes, sample_nodes
+from graphecho_torch.parallel.mesh import (Mesh, all_gather_nodes, all_reduce_grads,
+                                           all_reduce_sum)
 from graphecho_torch.train import cycle
 from graphecho_torch.train.losses import bce_with_logits, dice_loss
 from graphecho_torch.train.metrics import confusion_counts
 from graphecho_torch.train.state import DIS_LEVELS, TrainState
 
 
-# the FPN's compute dtype by `ModelConfig.compute_dtype`; f32 is the
-# unconverted path (`models/backbones.py::set_compute_dtype`)
+# the FPN's and the TGCN's compute dtype by `ModelConfig.compute_dtype`; f32
+# is the unconverted path (`models/backbones.py::set_compute_dtype`)
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for the train-step options that the port does not implement yet."""
-    t, m = cfg.train, cfg.model
-    deferred = {
-        "mesh_data": (t.mesh_data is not None, "the data-parallel slice"),
-        "compute_dtype='bfloat16' in the train step": (
-            m.compute_dtype != "float32", "the bf16 train step"),
-    }
-    for name, (on, where) in deferred.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported to graphecho_torch yet; it comes with {where} "
-                "(ROADMAP.md, Queue 1)")
+    """Raise ValueError for a compute dtype or a mesh size the step cannot
+    take. Every option of the JAX package's step is ported."""
+    m, t = cfg.model, cfg.train
+    if m.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {m.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+    if t.mesh_data is not None and t.mesh_data < 1:
+        raise ValueError(f"mesh_data={t.mesh_data}: a positive number of ranks")
 
 
 def build_fpn(cfg: ExperimentConfig) -> FPN:
     """The FPN of `cfg.model`, computing in `cfg.model.compute_dtype`
     (`graphecho_tpu/train/steps.py:60-66`)."""
     m = cfg.model
-    if m.compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype {m.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+    check_supported(cfg)
     return FPN(num_classes=m.num_classes, back_bone=m.backbone,
                fpn_channels=m.fpn_channels, semantic_channels=m.semantic_channels,
                in_channels=m.in_channels, vgg_spec=m.vgg_spec, remat=m.remat,
@@ -93,7 +106,8 @@ def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:
                                d.grl_applied_domain)
             for lvl in DIS_LEVELS})
     if t.temporal_graph:
-        models["tgcn"] = TGCN(cfg.tgcn, cfg.sinkhorn)
+        models["tgcn"] = TGCN(cfg.tgcn, cfg.sinkhorn,
+                              dtype=COMPUTE_DTYPES[cfg.model.compute_dtype])
     return models
 
 
@@ -104,7 +118,24 @@ def to_nchw(x, device: torch.device) -> torch.Tensor:
     return x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).contiguous()
 
 
-def make_train_step(cfg: ExperimentConfig
+def _f32(feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The entry of a component built without a dtype: flax promotes a bf16
+    input with f32 parameters to f32 (a no-op for f32 features)."""
+    return [f.float() for f in feats]
+
+
+def _part_major(x: torch.Tensor, sizes: Sequence[int], world: int) -> torch.Tensor:
+    """Gathered rank blocks, each the concatenation of parts of `sizes` rows,
+    -> every rank's rows of part 0, then of part 1, ...: the global layout of
+    a batch whose entries are each sharded by rows."""
+    if len(sizes) == 1:
+        return x
+    blocks = [b.split(list(sizes)) for b in x.split(sum(sizes))]
+    assert len(blocks) == world
+    return torch.cat([blk[i] for i in range(len(sizes)) for blk in blocks])
+
+
+def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Mapping[str, Any]], Dict[str, torch.Tensor]]:
     """Returns `train_step(state, batch) -> metrics`; the step updates `state`
     in place and returns its losses as 0-d tensors on the device.
@@ -113,12 +144,31 @@ def make_train_step(cfg: ExperimentConfig
     graph_matching imgs_target (Bt,H,W,1); with temporal_graph
     temp_imgs_source/target (Bc,T,H,W,1), temp_masks (Bc,T,H,W,Cm) and
     update_idx_source/target (Bc,); with cyc_loss cyc_imgs
-    (n_clips*64,H,W,1), whole clips back to back."""
+    (n_clips*64,H,W,1), whole clips back to back. With a `mesh` each rank
+    passes its row block of every entry, the same number of rows on every
+    rank (`parallel.mesh.shard_batch` cuts one from a global batch)."""
     check_supported(cfg)
     t = cfg.train
     is_camus = cfg.model.backbone == "resnet"
     sampler = cfg.gmodule.sampler
     fused = cfg.model.fused_fpn_forwards and t.graph_matching
+    world = 1 if mesh is None else mesh.size
+
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of `x`, rank 0's first, with autograd."""
+        return x if mesh is None else all_gather_nodes(x, mesh)
+
+    def fpn_call(fpn, parts: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[int]]:
+        """One FPN call over this rank's rows of `parts`. Returns the logits
+        and the pyramid of the global batch, every rank's rows of part 0
+        first, then of part 1, ..., and the global row count of each part."""
+        pred, feats = fpn(parts[0] if len(parts) == 1 else torch.cat(parts))
+        sizes = [p.shape[0] for p in parts]
+        if mesh is None:
+            return pred, list(feats), sizes
+        pred, *feats = (_part_major(gather(x), sizes, world) for x in (pred, *feats))
+        return pred, feats, [n * world for n in sizes]
 
     def seg_supervision(pred, masks):
         if is_camus:
@@ -139,15 +189,18 @@ def make_train_step(cfg: ExperimentConfig
         extra: Dict[str, torch.Tensor] = {}  # reported, not summed
 
         dev = state.device
-        masks = to_nchw(batch["masks"], dev)
+        if mesh is not None:
+            set_batch_norm_group(fpn, mesh.group)
+        with torch.no_grad():
+            masks = gather(to_nchw(batch["masks"], dev))
         if t.temporal_graph:
             ts_clips, tt_clips = batch["temp_imgs_source"], batch["temp_imgs_target"]
             assert ts_clips.shape == tt_clips.shape, (
                 "temporal source/target clip batches must match "
                 f"({ts_clips.shape} vs {tt_clips.shape}): the TGCN splits its batch at the "
                 "midpoint")
-            bc, tl = ts_clips.shape[:2]
-            clip_frames = torch.cat([to_nchw(ts_clips, dev), to_nchw(tt_clips, dev)])
+            bc, tl = ts_clips.shape[0] * world, ts_clips.shape[1]
+            clip_parts = [to_nchw(ts_clips, dev), to_nchw(tt_clips, dev)]
 
         fused_out = None
         if fused:
@@ -156,19 +209,20 @@ def make_train_step(cfg: ExperimentConfig
             # union, one running-stats update
             parts = [to_nchw(batch["imgs_source"], dev), to_nchw(batch["imgs_target"], dev)]
             if t.temporal_graph:
-                parts.append(clip_frames)
+                parts += clip_parts
             assert all(p.shape[1:] == parts[0].shape[1:] for p in parts), (
                 "fused_fpn_forwards requires same-geometry frames across the "
                 f"source/target/temporal branches, got {[tuple(p.shape) for p in parts]}")
             with record_function("step.fpn_fused"):
-                preds_cat, feats_cat = fpn(torch.cat(parts))
-            sizes = [p.shape[0] for p in parts]
+                preds_cat, feats_cat, sizes = fpn_call(fpn, parts)
+            # the clip halves are adjacent: one piece
+            sizes = sizes[:2] + ([sum(sizes[2:])] if t.temporal_graph else [])
             fused_out = list(zip(preds_cat.split(sizes),
                                  zip(*(f.split(sizes) for f in feats_cat))))
             pred_s, feats_s = fused_out[0]
         else:
             with record_function("step.fpn_source"):
-                pred_s, feats_s = fpn(to_nchw(batch["imgs_source"], dev))
+                pred_s, feats_s, _ = fpn_call(fpn, [to_nchw(batch["imgs_source"], dev)])
         losses["seg_loss"] = seg_supervision(pred_s, masks)
 
         new_seeds = None
@@ -178,7 +232,7 @@ def make_train_step(cfg: ExperimentConfig
                 pred_t, feats_t = fused_out[1]
             else:
                 with record_function("step.fpn_target"):
-                    pred_t, feats_t = fpn(to_nchw(batch["imgs_target"], dev))
+                    pred_t, feats_t, _ = fpn_call(fpn, [to_nchw(batch["imgs_target"], dev)])
             with record_function("step.sampling"):
                 # target pseudo-labels: sigmoid(pred) > class_threshold
                 # (`train_camus_echo.py:219`)
@@ -186,8 +240,8 @@ def make_train_step(cfg: ExperimentConfig
                     score_maps = (torch.sigmoid(pred_t) > sampler.class_threshold).float()
                     boxes_s = masks_to_boxes(masks[:, :1] if is_camus else masks)
                     boxes_t = masks_to_boxes(score_maps)
-                src = sample_nodes(gm.project_features(feats_s), boxes_s, sampler)
-                tgt = sample_nodes(gm.project_features(feats_t), boxes_t, sampler)
+                src = sample_nodes(gm.project_features(_f32(feats_s)), boxes_s, sampler)
+                tgt = sample_nodes(gm.project_features(_f32(feats_t)), boxes_t, sampler)
             with record_function("step.gmodule"):
                 gm_losses, new_seeds, _ = gm(src, tgt, (state.sr_seed, state.tg_seed),
                                              train=True, generator=state.generator)
@@ -197,7 +251,7 @@ def make_train_step(cfg: ExperimentConfig
                 with record_function("step.discriminators"):
                     for i, lvl in enumerate(DIS_LEVELS):
                         losses[f"loss_adv_{lvl}"] = cfg.dis.loss_weight * state.dis.module[lvl](
-                            feats_s[i], feats_t[i])
+                            feats_s[i].float(), feats_t[i].float())
 
         new_queues = None
         if t.temporal_graph:
@@ -206,11 +260,11 @@ def make_train_step(cfg: ExperimentConfig
                 preds_, feats_ = fused_out[2]
             else:
                 with record_function("step.fpn_temporal"):
-                    preds_, feats_ = fpn(clip_frames)
+                    preds_, feats_, _ = fpn_call(fpn, clip_parts)
             half = bc * tl
             with record_function("step.sampling_temporal"):
                 with torch.no_grad():
-                    tm = to_nchw(batch["temp_masks"], dev)
+                    tm = gather(to_nchw(batch["temp_masks"], dev))
                     # frames with enough mask area supervise the sampling; the
                     # others use the RAW logits as pseudo-masks, boxed as
                     # `mask != 0`, so they degenerate to full-image boxes as in
@@ -224,9 +278,9 @@ def make_train_step(cfg: ExperimentConfig
                     # boxes the raw logits (`train_camus_echo.py:272`)
                     boxes_t2 = masks_to_boxes(
                         (torch.sigmoid(preds_[half:]) > sampler.class_threshold).float())
-                src2 = sample_nodes(gm.project_features([f[:half] for f in feats_]),
+                src2 = sample_nodes(gm.project_features(_f32(f[:half] for f in feats_)),
                                     boxes_s2, sampler)
-                tgt2 = sample_nodes(gm.project_features([f[half:] for f in feats_]),
+                tgt2 = sample_nodes(gm.project_features(_f32(f[half:] for f in feats_)),
                                     boxes_t2, sampler)
             with record_function("step.gmodule_temporal"):
                 # the second call starts from the first call's new seeds
@@ -237,7 +291,7 @@ def make_train_step(cfg: ExperimentConfig
             with record_function("step.tgcn"):
                 b2 = 2 * bc
                 clips = [f.reshape(b2, tl, *f.shape[1:]) for f in feats_]
-                update_idx = tuple(torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                update_idx = tuple(gather(torch.as_tensor(batch[k]).to(dev, non_blocking=True))
                                    for k in ("update_idx_source", "update_idx_target"))
                 tg_losses, new_queues = state.tgcn.module(
                     clips, g1.nodes.detach(), g1.valid, g2.nodes.detach(), g2.valid,
@@ -254,7 +308,8 @@ def make_train_step(cfg: ExperimentConfig
                 # train mode, so the 64-frame batch statistics normalize and
                 # move the running stats (`train_cardiac_uda.py:245-253`)
                 c = cfg.cycle
-                feat_out = fpn.back_bone(to_nchw(batch["cyc_imgs"], dev))[-1].sum(dim=(2, 3))
+                feat_out = gather(
+                    fpn.back_bone(to_nchw(batch["cyc_imgs"], dev))[-1].sum(dim=(2, 3)))
                 # several whole clips back to back: the loss is per clip
                 feat_clips = feat_out.reshape(-1, c.clip_length, feat_out.shape[-1])
                 starts = cycle.draw_starts(state.generator, feat_clips.shape[0],
@@ -267,6 +322,15 @@ def make_train_step(cfg: ExperimentConfig
         total = sum(losses.values())
         with record_function("step.backward"):
             total.backward()
+        if mesh is not None:
+            with record_function("step.all_reduce"):
+                # the FPN's rows differ by rank: its gradients are summed.
+                # Everything after the gather is replicated; its gradients
+                # differ between cards only by the rounding of atomics, and
+                # their mean keeps the replicas equal to the bit
+                all_reduce_grads(mesh, fpn.parameters(),
+                                 (p for comp in state.components() if comp is not state.net
+                                  for p in comp.module.parameters()))
         with record_function("step.optimizers"):
             for comp in state.components():
                 comp.apply_gradients(state.step)
@@ -283,22 +347,24 @@ def make_train_step(cfg: ExperimentConfig
     return train_step
 
 
-def make_eval_step(cfg: ExperimentConfig, drop_bg_channel: bool = False):
+def make_eval_step(cfg: ExperimentConfig, drop_bg_channel: bool = False,
+                   mesh: Optional[Mesh] = None):
     """Returns `eval_step(state, imgs, masks) -> (counts, per_part, loss)`, the
     reference validation contract (`train_camus_echo.py:350-417`). With
     `drop_bg_channel`, channel 0 is left out as the cardiac trainer does
-    (`train_cardiac_uda.py:399-400`)."""
+    (`train_cardiac_uda.py:399-400`). With a `mesh`, every rank passes the
+    same global batch and runs its share of the rows (none, where there are
+    fewer rows than ranks); the counts and the loss's sum are summed over
+    the ranks, so every rank returns the global batch's."""
     is_camus = cfg.model.backbone == "resnet"
+    sharded = mesh is not None and mesh.group is not None
 
-    @torch.no_grad()
-    def eval_step(state: TrainState, imgs, masks):
-        fpn = state.net.module
-        fpn.eval()
-        logits, _ = fpn(to_nchw(imgs, state.device))
-        masks = to_nchw(masks, state.device)
+    def score(fpn, imgs, masks):
+        # a rank whose share has no rows runs no forward; its sums are zeros
+        logits = fpn(imgs)[0] if imgs.shape[0] else masks
         if is_camus:
             masks, logits = masks[:, :1], logits[:, :1]
-        loss = bce_with_logits(logits, masks)
+        loss = bce_with_logits(logits, masks, reduction="sum" if sharded else "mean")
         if drop_bg_channel:
             logits, masks = logits[:, 1:], masks[:, 1:]
         pred = (torch.sigmoid(logits) > 0.5).float()
@@ -306,5 +372,25 @@ def make_eval_step(cfg: ExperimentConfig, drop_bg_channel: bool = False):
         per_part = {f"part{i}": confusion_counts(masks[:, i], pred[:, i])
                     for i in range(logits.shape[1])}
         return counts, per_part, loss
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, imgs, masks):
+        fpn = state.net.module
+        fpn.eval()
+        imgs, masks = to_nchw(imgs, state.device), to_nchw(masks, state.device)
+        if not sharded:
+            return score(fpn, imgs, masks)
+        n_loss = masks[:, :1].numel() if is_camus else masks.numel()
+        imgs, masks = (x.tensor_split(mesh.size)[mesh.rank] for x in (imgs, masks))
+        counts, per_part, loss = score(fpn, imgs, masks)
+        keys = list(counts)
+        parts = [(p, k) for p, c in per_part.items() for k in c]
+        flat = all_reduce_sum(torch.stack([loss.float()] + [counts[k] for k in keys]
+                                          + [per_part[p][k] for p, k in parts]), mesh.group)
+        counts = dict(zip(keys, flat[1:1 + len(keys)]))
+        per_part = {}
+        for (p, k), v in zip(parts, flat[1 + len(keys):]):
+            per_part.setdefault(p, {})[k] = v
+        return counts, per_part, flat[0] / n_loss
 
     return eval_step

@@ -17,12 +17,20 @@ The reference `Trainer` contract (`train_camus_echo.py:45-515`,
     (`utils/summary.py`).
 
 Losses and counts stay on the device and come to the host once per epoch and
-once per validation pass. The data-parallel mesh and the torch-checkpoint
-import are not ported yet and raise.
+once per validation pass.
+
+Data parallel (`use_mesh` or a `mesh`, `parallel/mesh.py`): one process per
+device. Each rank's train batches are its row block of the global batch (the
+per-rank loaders of `real_training.py` give them); eval batches are the
+global ones on every rank. The state is broadcast from rank 0 after it is
+built or restored; rank 0 alone writes checkpoints and summaries, and every
+rank restores. A stop signal on any rank stops every rank after the same
+step.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -31,13 +39,16 @@ import torch
 
 from graphecho_torch.config import ExperimentConfig
 from graphecho_torch.device import resolve_device
-from graphecho_torch.train.checkpoint import CheckpointManager
+from graphecho_torch.parallel.mesh import (Mesh, any_rank, create_mesh, replicate,
+                                           replicate_generator)
+from graphecho_torch.train.checkpoint import TENSORS, CheckpointManager
 from graphecho_torch.train.metrics import overlap_metrics_from_counts
 from graphecho_torch.train.state import TrainState, create_train_state
 from graphecho_torch.train.steps import (build_models, check_supported, make_eval_step,
                                          make_train_step)
 from graphecho_torch.utils.preemption import PreemptionGuard
 from graphecho_torch.utils.summary import SummaryWriter
+from graphecho_torch.utils.torch_import import load_reference_checkpoint
 
 
 def _logger(name: str, log_path: Optional[str]) -> logging.Logger:
@@ -67,22 +78,30 @@ def _timed(batches: Iterable[Dict[str, Any]], waits: List[float]):
         yield batch
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to graphecho_torch yet; it comes "
-                               f"with {where} (ROADMAP.md, Queue 1)")
+def replicate_state(mesh: Mesh, state: TrainState) -> None:
+    """Give every rank rank 0's state: the modules' parameters and buffers,
+    the optimizers' tensors, the seed banks, the queues and the generator."""
+    comps = state.components()
+    replicate(mesh, itertools.chain(
+        (t for c in comps for t in itertools.chain(c.module.parameters(), c.module.buffers())),
+        (v for c in comps for st in c.opt.state.values() for v in st.values()
+         if torch.is_tensor(v)),
+        (getattr(state, n) for n in TENSORS if getattr(state, n) is not None)))
+    replicate_generator(mesh, state.generator)
 
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int = 1,
-                 device=None, mesh=None, use_mesh: bool = False,
+                 device=None, mesh: Optional[Mesh] = None, use_mesh: bool = False,
                  log_path: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None,
                  summary_dir: Optional[str] = None,
                  drop_bg_channel_in_eval: Optional[bool] = None):
-        if use_mesh or mesh is not None:
-            raise _not_ported("use_mesh / mesh", "the data-parallel slice")
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None else (
+            create_mesh(cfg.train.mesh_data) if use_mesh else None)
+        self.is_chief = self.mesh is None or self.mesh.rank == 0
         self.device = resolve_device(device)
         self.steps_per_epoch = steps_per_epoch
         self.logger = _logger("graphecho_torch", log_path)
@@ -93,11 +112,12 @@ class Trainer:
         if drop_bg_channel_in_eval is None:
             # the cardiac variant drops the BG channel (`train_cardiac_uda.py:399-400`)
             drop_bg_channel_in_eval = cfg.model.backbone == "VGG16"
-        self._train_step = make_train_step(cfg)
-        self._eval_step = make_eval_step(cfg, drop_bg_channel_in_eval)
+        self._train_step = make_train_step(cfg, self.mesh)
+        self._eval_step = make_eval_step(cfg, drop_bg_channel_in_eval, self.mesh)
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
-        self.summary = SummaryWriter(summary_dir) if summary_dir else None
+        self.summary = SummaryWriter(summary_dir) if summary_dir and self.is_chief else None
         self._preemption: Optional[PreemptionGuard] = None
+        self._stopped = False
         self.state: Optional[TrainState] = None
         self.last_epoch_metrics: Dict[str, float] = {}
         self.last_dices: Dict[str, float] = {}
@@ -108,14 +128,21 @@ class Trainer:
                    torch_init: Optional[str] = None) -> TrainState:
         """Weights from the generator seeded with `cfg.train.seed` (or `seed`),
         replaced by the latest checkpoint's whole state when `checkpoint_dir`
-        holds one. `sample_batch` is accepted for the JAX package's
-        signature; the torch modules know their shapes without one."""
-        if torch_init:
-            raise _not_ported("torch_init", "the tooling slice")
+        holds one, else, with `torch_init`, the FPN's from an upstream torch
+        `.pth` (a torchvision ResNet or a GraphEcho checkpoint, the
+        reference's `pretrained` knob, `utils/torch_import.py`).
+        `sample_batch` is accepted for the JAX package's signature; the torch
+        modules know their shapes without one."""
         state = create_train_state(self.cfg, self.models, self.device,
                                    self.steps_per_epoch, seed)
         if self.ckpt is not None and self.ckpt.restore(state) is not None:
             self.logger.info("resumed from checkpoint step %s", state.step)
+        elif torch_init:
+            skipped = load_reference_checkpoint(state.net.module, torch_init)
+            self.logger.info("FPN initialized from torch checkpoint %s (%d keys skipped)",
+                             torch_init, len(skipped))
+        if self.mesh is not None:
+            replicate_state(self.mesh, state)
         self.state = state
         return self.state
 
@@ -131,11 +158,15 @@ class Trainer:
             device_agg = metrics if device_agg is None else {
                 k: device_agg[k] + v for k, v in metrics.items()}
             n += 1
-            if self._preemption is not None and self._preemption.should_stop:
+            stop = self._preemption is not None and self._preemption.should_stop
+            if self.mesh is not None and self.mesh.size > 1:
+                # every rank stops after the same step (a host sync a step)
+                stop = any_rank(self.mesh, stop)
+            if stop:
                 self.logger.warning("preemption signal at step %d: checkpointing + stop",
                                     self.state.step)
-                if self.ckpt is not None:
-                    self.ckpt.save(self.state.step, self.state)
+                self._stopped = True
+                self._save(self.state.step)
                 break
         else:  # the epoch ran to its end
             self.state.epoch = epoch + 1
@@ -181,10 +212,11 @@ class Trainer:
         checkpoint at that step."""
         num_epochs = num_epochs or self.cfg.train.num_epochs
         self._preemption = PreemptionGuard()
+        self._stopped = False
         try:
             for epoch in range(num_epochs):
                 means = self.train_epoch(batch_iter_fn(), epoch)
-                if self._preemption.should_stop:
+                if self._stopped:
                     break
                 dices: Dict[str, float] = {}
                 for name, fn in (eval_fns or {}).items():
@@ -193,17 +225,22 @@ class Trainer:
                 self.last_dices = dices
                 if on_epoch_end is not None:
                     on_epoch_end(epoch, means, dices)
-                if self.ckpt is not None and epoch % save_every == 0:
+                if epoch % save_every == 0:
                     metrics = None
                     if dices:
                         sel = select_metric if select_metric in dices else next(reversed(dices))
                         metrics = {"dice": dices[sel], "dice_metric": sel,
                                    **{f"dice/{k}": v for k, v in dices.items()}}
-                    self.ckpt.save(self.state.step, self.state, metrics=metrics)
+                    self._save(self.state.step, metrics)
         finally:
             self._preemption.uninstall()
             self._preemption = None
         return self.state
+
+    def _save(self, step: int, metrics: Optional[Dict[str, Any]] = None) -> None:
+        """A checkpoint of the whole state, written by rank 0 alone."""
+        if self.ckpt is not None and self.is_chief:
+            self.ckpt.save(step, self.state, metrics=metrics)
 
     # ------------------------------------------------------------- validation
     def validation(self, batches: Iterable[Tuple[Any, Any]], name: str,

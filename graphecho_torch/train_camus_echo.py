@@ -10,7 +10,12 @@ actual flags (the reference imports argparse and never uses it):
 Without dataset roots it runs on synthetic data (pipeline smoke mode). It runs
 on CUDA unless `--device` names another device. With `--save-dir` a run
 resumes from the latest checkpoint there, and SIGTERM/SIGINT stops it after
-the current step with a checkpoint. EchoNet needs cv2 (`.avi`) and pandas
+the current step with a checkpoint. Data parallel, one process per GPU:
+
+    torchrun --nproc-per-node 4 -m graphecho_torch.train_camus_echo --use-mesh ...
+
+or start each process with `--num-processes N --process-id I --coordinator
+host:port --use-mesh`. EchoNet needs cv2 (`.avi`) and pandas
 (its CSVs); CAMUS needs neither.
 """
 
@@ -30,41 +35,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-dir", default=None)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--use-mesh", action="store_true",
-                   help="data-parallel over all local devices (not ported yet)")
+                   help="data parallel over the process group, one process per device")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--pretrained-backbone", default=None,
-                   help="torch .pth to initialize the FPN from (not ported yet)")
+                   help="torch .pth to initialize the FPN from: torchvision zoo ResNet "
+                        "weights or a reference GraphEcho checkpoint")
     p.add_argument("--no-graph-matching", action="store_true")
     p.add_argument("--no-discriminator", action="store_true")
     p.add_argument("--temporal-graph", action="store_true")
+    # multi-process launch (reference NCCL init `train_camus_echo.py:526-535`):
+    # `parallel.mesh.initialize_distributed`; unset values come from the
+    # launcher's environment (WORLD_SIZE, RANK, MASTER_ADDR, ...)
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-process training (not ported yet)")
+                   help="processes in the run, one per device")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (multi-process only; not ported yet)")
+                   help="host:port of process 0 (multi-process only)")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     return p
 
 
-def check_deferred(args) -> None:
-    """Raise for the flags whose code paths the port does not have yet."""
-    deferred = {
-        "--use-mesh": (args.use_mesh, "the data-parallel slice"),
-        "--num-processes > 1": ((args.num_processes or 1) > 1, "the data-parallel slice"),
-        "--coordinator": (args.coordinator is not None, "the data-parallel slice"),
-        "--pretrained-backbone": (args.pretrained_backbone is not None, "the tooling slice"),
-    }
-    for flag, (on, where) in deferred.items():
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to graphecho_torch yet; it comes with {where} "
-                "(ROADMAP.md, Queue 1)")
+def init_distributed(args) -> None:
+    """Join the process group the flags (or the launcher's environment)
+    describe, as the JAX CLIs call `initialize_distributed`; a no-op for one
+    process."""
+    from graphecho_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(coordinator=args.coordinator, num_processes=args.num_processes,
+                           process_id=args.process_id)
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_deferred(args)
+    init_distributed(args)
     if args.camus_root and args.echonet_root:
         from graphecho_torch.real_training import run_camus_echo
 
@@ -74,7 +78,8 @@ def main(argv=None) -> None:
 
         train_camus_echo(
             num_epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
-            checkpoint_dir=args.save_dir, seed=args.seed, device=args.device,
+            checkpoint_dir=args.save_dir, use_mesh=args.use_mesh, seed=args.seed,
+            torch_init=args.pretrained_backbone, device=args.device,
             view_num=args.view_num,
             graph_matching=not args.no_graph_matching,
             discriminator=not args.no_discriminator,

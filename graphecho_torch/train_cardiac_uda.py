@@ -12,14 +12,16 @@ infos file. Without --root/--infos it runs on synthetic data (pipeline smoke
 mode). It runs on CUDA unless `--device` names another device. With
 `--save-dir` a run resumes from the latest checkpoint there, and
 SIGTERM/SIGINT stops it after the current step with a checkpoint. Reading
-CardiacUDA needs neither cv2 nor nibabel.
+CardiacUDA needs neither cv2 nor nibabel. `--use-mesh` with one process per
+GPU (`torchrun`, or `--num-processes/--process-id/--coordinator`) trains data
+parallel.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from graphecho_torch.train_camus_echo import check_deferred
+from graphecho_torch.train_camus_echo import init_distributed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,18 +35,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-dir", default=None)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--use-mesh", action="store_true",
-                   help="data-parallel over all local devices (not ported yet)")
+                   help="data parallel over the process group, one process per device")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--pretrained-backbone", default=None,
-                   help="torch .pth to initialize the FPN from (not ported yet)")
+                   help="torch .pth to initialize the FPN from: torchvision zoo ResNet "
+                        "weights or a reference GraphEcho checkpoint")
     p.add_argument("--no-graph-matching", action="store_true")
     p.add_argument("--no-discriminator", action="store_true")
     p.add_argument("--temporal-graph", action="store_true")
     p.add_argument("--cyc-loss", action="store_true")
+    # multi-process launch (reference NCCL init `train_camus_echo.py:526-535`):
+    # `parallel.mesh.initialize_distributed`; unset values come from the
+    # launcher's environment (WORLD_SIZE, RANK, MASTER_ADDR, ...)
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-process training (not ported yet)")
+                   help="processes in the run, one per device")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (multi-process only; not ported yet)")
+                   help="host:port of process 0 (multi-process only)")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
@@ -53,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_deferred(args)
+    init_distributed(args)
     if args.root and args.infos:
         from graphecho_torch.real_training import run_cardiac_uda
 
@@ -63,7 +69,8 @@ def main(argv=None) -> None:
 
         train_cardiac_uda(
             num_epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
-            checkpoint_dir=args.save_dir, seed=args.seed, device=args.device,
+            checkpoint_dir=args.save_dir, use_mesh=args.use_mesh, seed=args.seed,
+            torch_init=args.pretrained_backbone, device=args.device,
             view_num=args.view_num,
             graph_matching=not args.no_graph_matching,
             discriminator=not args.no_discriminator,

@@ -12,6 +12,7 @@ CLIs) on synthesized on-disk fixtures (.mhd/.avi/.nii.gz), on the CPU:
 """
 
 import argparse
+import dataclasses
 
 import numpy as np
 import pytest
@@ -287,10 +288,24 @@ DEFERRED = [(["--use-mesh"], "data-parallel"), (["--num-processes", "2"], "data-
                          ids=["train_camus_echo", "train_cardiac_uda"])
 @pytest.mark.parametrize("flags,slice_", DEFERRED, ids=[d[0][0] for d in DEFERRED])
 def test_deferred_flags_raise(cli, flags, slice_, monkeypatch):
-    monkeypatch.setattr(real_training, "run_camus_echo", lambda *a, **k: pytest.fail("ran"))
-    monkeypatch.setattr(real_training, "run_cardiac_uda", lambda *a, **k: pytest.fail("ran"))
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli.main(flags + ["--device", "cpu"])
+    """The flags the port once refused now reach their run: the process-group
+    flags `initialize_distributed`, `--use-mesh` and `--pretrained-backbone`
+    the entry point (as `use_mesh` and `torch_init`)."""
+    from graphecho_torch import entrypoints
+    from graphecho_torch.parallel import mesh
+
+    init, run = {}, {}
+    monkeypatch.setattr(mesh, "initialize_distributed", lambda **kw: init.update(kw))
+    monkeypatch.setattr(entrypoints, cli.__name__.rsplit(".", 1)[-1],
+                        lambda **kw: run.update(kw))
+    cli.main(flags + ["--device", "cpu"])
+    flag = flags[0]
+    assert init == {"coordinator": "localhost:1234" if flag == "--coordinator" else None,
+                    "num_processes": 2 if flag == "--num-processes" else None,
+                    "process_id": None}, slice_
+    assert run["use_mesh"] is (flag == "--use-mesh")
+    assert run["torch_init"] == ("w.pth" if flag == "--pretrained-backbone" else None)
+    assert run["device"] == "cpu"
 
 
 def test_cli_without_roots_runs_the_synthetic_entry_point(monkeypatch, tmp_path):
@@ -305,12 +320,22 @@ def test_cli_without_roots_runs_the_synthetic_entry_point(monkeypatch, tmp_path)
 
 
 def test_proc_reads_torch_distributed(monkeypatch):
+    """`_proc` reads the process group; `_check_multihost` lets several
+    processes train only through the mesh, whose `mesh_data` must be the
+    whole world."""
     import torch.distributed as dist
 
+    cfg = C.cardiac_uda_config(temporal_graph=True, cyc_loss=True)
     assert real_training._proc() == {"process_index": 0, "process_count": 1}
+    real_training._check_multihost(cfg, use_mesh=False)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda: 1)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
     assert real_training._proc() == {"process_index": 1, "process_count": 2}
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        real_training._check_multihost()
+    with pytest.raises(ValueError, match="--use-mesh"):
+        real_training._check_multihost(cfg, use_mesh=False)
+    real_training._check_multihost(cfg, use_mesh=True)
+    for n in (1, 4):
+        bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_data=n))
+        with pytest.raises(ValueError, match="one process per device"):
+            real_training._check_multihost(bad, use_mesh=True)

@@ -257,12 +257,28 @@ def test_export_and_reload_bit_equal(shared, tmp_path, kind):
 
 
 def test_bf16_builds_for_inference_and_the_train_step_refuses():
+    """bf16 builds for inference, for the train step and for the Trainer: one
+    Trainer step computes the FPN in bf16 and keeps the parameters and the
+    Adam moments f32 (the step's parity with the JAX bf16 step is
+    `tests/test_torch_bf16.py`)."""
     cfg = small_cfg(compute_dtype="bfloat16")
     fpn = build_models(cfg)["fpn"]
     assert fpn.dtype == torch.bfloat16
-    for build in (lambda: make_train_step(cfg), lambda: Trainer(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="bf16 train step"):
-            build()
+    make_train_step(cfg)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    rng = np.random.RandomState(3)
+    masks = np.zeros((2, HW, HW, cfg.model.num_classes), np.float32)
+    masks[:, 8:24, 8:24, 1:] = 1.0
+    masks[..., 0] = 1.0 - masks[..., 1:].max(-1)
+    batch = {"imgs_source": rng.rand(2, HW, HW, 1).astype(np.float32), "masks": masks}
+    logits, _ = state.net.module.eval()(torch.from_numpy(batch["imgs_source"]).permute(0, 3, 1, 2))
+    assert logits.dtype == torch.bfloat16
+    means = trainer.train_epoch([batch], 0)
+    assert np.isfinite(means["total_loss"]) and state.step == 1
+    assert all(p.dtype == torch.float32 for p in state.net.module.parameters())
+    moments = [v for st in state.net.opt.state.values() for k, v in st.items() if k != "step"]
+    assert moments and all(v.dtype == torch.float32 for v in moments)
 
 
 def test_bench_prints_json_lines(monkeypatch, capsys):

@@ -172,16 +172,25 @@ def test_one_step_with_every_branch_matches_jax(monkeypatch):
 
 
 def test_every_train_branch_is_ported():
-    """The port refuses only the data-parallel mesh and bf16 compute; the
+    """Every option of the JAX step is ported: `check_supported` takes bf16
+    compute and a mesh size, and refuses only values no step can take; the
     temporal branch needs the graph-matching module, as in the JAX package."""
     cfg = tconfig.cardiac_uda_config(temporal_graph=True, cyc_loss=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True,
                                                              fused_fpn_forwards=True))
     check_supported(cfg)
     for model, train in (({"compute_dtype": "bfloat16"}, {}), ({}, {"mesh_data": 2})):
+        ok = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model),
+                                 train=dataclasses.replace(cfg.train, **train))
+        check_supported(ok)
+    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              compute_dtype="bfloat16"))
+    models = build_models(bf16)
+    assert models["fpn"].dtype == torch.bfloat16 and models["tgcn"].dtype == torch.bfloat16
+    for model, train in (({"compute_dtype": "float16"}, {}), ({}, {"mesh_data": 0})):
         bad = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model),
                                   train=dataclasses.replace(cfg.train, **train))
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError):
             check_supported(bad)
     no_gm = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, graph_matching=False, discriminator=False))
