@@ -1,29 +1,26 @@
-"""Data parallelism across several devices against one, on one global batch.
+"""Data parallelism across several GPUs against one, on one global batch.
 
-    python -m graphecho_torch.dp_check --world 4                  # 4 GPUs, NCCL
-    python -m graphecho_torch.dp_check --world 4 --device cpu --tiny   # gloo
+    python -m graphecho_torch.dp_check --world 4
 
 The recipe is `cardiac_uda_config(temporal_graph=True, cyc_loss=True)` at full
 width, its synthetic global batch (8 + 8 frames, clips 4 + 4 of 8 frames, one
-64-frame cycle clip); `--tiny` cuts it to the tests' widths and 64² frames
-for a CPU rehearsal. Rank 0 first runs the plain step alone on the whole
+64-frame cycle clip). Rank 0 first runs the plain step alone on the whole
 global batch, from the seeded state, and times further steps; then every
-rank joins a process group (`tcp://127.0.0.1`, NCCL on CUDA, gloo on the
-CPU), keeps its row block of the same batches (`parallel.mesh.shard_batch`)
-and runs the data-parallel step from the same weights. Rank 0 prints one
-JSON line: the losses of the first step of both and their largest relative
-difference, the spread of the state over the ranks after the steps (the FPN,
-the replicated components' parameters and buffers, the seed banks and
-queues), the
-steady step ms of both (host clock, synchronised, median), the peak memory
-of each, and the card with its power limit. It fails when a loss differs by
-more than `LOSS_RTOL` or the state is not equal on every rank.
+rank joins an NCCL process group (`tcp://127.0.0.1`), keeps its row block of
+the same batches (`parallel.mesh.shard_batch`) and runs the data-parallel
+step from the same weights. Rank 0 prints one JSON line: the losses of the
+first step of both and their largest relative difference, the spread of the
+state over the ranks after the steps (the FPN, the replicated components'
+parameters and buffers, the seed banks and queues), the steady step ms of
+both (host clock, synchronised, median), the peak memory of each, and the
+card with its power limit. It fails when a loss differs by more than
+`LOSS_RTOL` or the state is not equal on every rank. The two-process CPU
+case (gloo) is `tests/test_torch_parallel.py`.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import socket
 import statistics
@@ -37,28 +34,14 @@ import torch.multiprocessing as mp
 LOSS_RTOL = 1e-3  # rounding: per-rank batch sizes change the kernels' sums
 
 
-def _config(tiny: bool):
+def _config():
     from graphecho_torch import config as C
 
-    cfg = C.cardiac_uda_config(temporal_graph=True, cyc_loss=True)
-    if not tiny:
-        return cfg
-    return dataclasses.replace(
-        cfg,
-        data=dataclasses.replace(cfg.data, img_crop=(64, 64)),
-        model=dataclasses.replace(cfg.model, num_classes=2, fpn_channels=32,
-                                  semantic_channels=16,
-                                  vgg_spec=((8, 1), (16, 1), (16, 1), (32, 1), (32, 1))),
-        gmodule=dataclasses.replace(cfg.gmodule, in_channels=32, num_classes=2,
-                                    nodes_per_class=64),
-        dis=dataclasses.replace(cfg.dis, in_channels=32),
-        tgcn=dataclasses.replace(cfg.tgcn, input_dim=32, hidden_dim=32, clip_shape=(2, 4, 4)),
-        cycle=dataclasses.replace(cfg.cycle, clip_length=24))
+    return C.cardiac_uda_config(temporal_graph=True, cyc_loss=True)
 
 
 def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    torch.cuda.synchronize(device)
 
 
 def _steps(cfg, device, batches, mesh=None):
@@ -86,38 +69,30 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _rank(rank: int, world: int, port: int, device_type: str, tiny: bool, steps: int) -> None:
+def _rank(rank: int, world: int, port: int, steps: int) -> None:
     from graphecho_torch.data.synthetic import SyntheticEchoData
     from graphecho_torch.parallel.mesh import create_mesh, max_abs_spread, shard_batch
 
-    torch.set_num_threads(1 if device_type == "cpu" else torch.get_num_threads())
-    if device_type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.cuda.set_device(rank)
-        device = torch.device("cuda", rank)
-    else:
-        device = torch.device("cpu")
-    cfg = _config(tiny)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    device = torch.device("cuda", rank)
+    cfg = _config()
     data = SyntheticEchoData(cfg, seed=123)
     batches = [data.train_batch() for _ in range(steps)]
     out = {}
     if rank == 0:
-        if device_type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.reset_peak_memory_stats(device)
         out["plain_losses"], out["plain_step_ms"], state = _steps(cfg, device, batches)
-        if device_type == "cuda":
-            out["plain_peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        out["plain_peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         del state
-        if device_type == "cuda":
-            torch.cuda.empty_cache()
-    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+        torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
     try:
         mesh = create_mesh(world)
         local = [shard_batch(mesh, b) for b in batches]
-        if device_type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.reset_peak_memory_stats(device)
         losses, ms, state = _steps(cfg, device, local, mesh)
         replicated = [c for c in state.components() if c is not state.net]
         spread = {
@@ -129,19 +104,17 @@ def _rank(rank: int, world: int, port: int, device_type: str, tiny: bool, steps:
                 mesh, [b for c in replicated for b in c.module.buffers()]),
             "seeds_and_queues": max_abs_spread(
                 mesh, [state.sr_seed, state.tg_seed, state.queue_source, state.queue_target])}
-        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
-                if device_type == "cuda" else None)
         peaks = [None] * world
-        dist.all_gather_object(peaks, peak)
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(device) / 2 ** 30)
         if rank == 0:
             worst = max(abs(losses[k] - v) / max(abs(v), 1e-30)
                         for k, v in out["plain_losses"].items())
-            line = {"dp_check": "cardiac_full" + (" tiny" if tiny else ""), "world": world,
+            line = {"dp_check": "cardiac_full", "world": world,
                     "backend": dist.get_backend(), "losses": losses, **out,
                     "max_rel_loss_diff": worst, "spread": spread,
                     "dp_step_ms": ms, "speedup": out["plain_step_ms"] / ms,
                     "dp_peak_memory_gib": peaks,
-                    "card": _card() if device_type == "cuda" else "cpu"}
+                    "card": _card()}
             print(json.dumps(line), flush=True)
             if worst > LOSS_RTOL or any(spread.values()):
                 raise SystemExit(f"dp_check: loss difference {worst} or state spread {spread}")
@@ -152,17 +125,15 @@ def _rank(rank: int, world: int, port: int, device_type: str, tiny: bool, steps:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--world", type=int, default=4)
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    parser.add_argument("--tiny", action="store_true", help="the tests' widths, 64² frames")
     parser.add_argument("--steps", type=int, default=4, help="the first and the timed steps")
     args = parser.parse_args()
-    if args.device == "cuda" and torch.cuda.device_count() < args.world:
+    if torch.cuda.device_count() < args.world:
         raise SystemExit(f"dp_check: {args.world} ranks need {args.world} GPUs, "
                          f"{torch.cuda.device_count()} found")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    mp.spawn(_rank, args=(args.world, port, args.device, args.tiny, args.steps),
+    mp.spawn(_rank, args=(args.world, port, args.steps),
              nprocs=args.world, join=True)
 
 

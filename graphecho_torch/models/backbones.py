@@ -38,6 +38,7 @@ import contextlib
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -154,16 +155,13 @@ class BatchNorm2d(nn.Module):
         (the mean with the row count, then the centred squares), each with
         its gradient, so the backward is that of one BatchNorm over the
         global batch."""
-        # imported here: the `parallel` package imports the models
-        from graphecho_torch.parallel.mesh import all_reduce_sum
-
         dims = (0, 2, 3)
         count = x.new_full((1,), x.numel() // x.shape[1])
-        sums = all_reduce_sum(torch.cat([x.sum(dims), count]), self.group)
+        sums = dist_nn.all_reduce(torch.cat([x.sum(dims), count]), group=self.group)
         n = sums[-1].detach()
         mean = sums[:-1] / n
         xc = x - mean[None, :, None, None]
-        var = all_reduce_sum((xc * xc).sum(dims), self.group) / n
+        var = dist_nn.all_reduce((xc * xc).sum(dims), group=self.group) / n
         if not _stats_frozen:
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)

@@ -13,9 +13,11 @@ means. The port keeps those semantics by hand (`train/steps.py`):
     rank runs the rest of the step (sampling, GModule, discriminators, TGCN,
     losses) on the global batch, drawing the same random numbers;
   * the FPN's gradients are summed over the ranks; the replicated
-    components' gradients, equal on every rank up to the rounding of the
-    card's non-deterministic kernels (atomics), are averaged, which keeps
-    the replicas equal to the bit.
+    components' gradients, and the state every rank updates alike (their
+    running statistics, the seed banks, the queues), equal on every rank up
+    to the rounding of the card's non-deterministic kernels (atomics), are
+    averaged in the same all-reduce, which keeps the replicas equal to the
+    bit.
 
 Multi-process launch: `initialize_distributed` wraps `init_process_group`,
 with the rank, world size and coordinator from the arguments or from the
@@ -132,29 +134,6 @@ def replicate_generator(mesh: Mesh, gen: torch.Generator) -> None:
     gen.set_state(state)
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; the gradient of every rank's input is the sum of
-    the ranks' output gradients."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `x` over the ranks of `group`, with a gradient."""
-    return _AllReduceSum.apply(x, group)
-
-
 class _AllGatherRows(torch.autograd.Function):
     """Every rank's rows concatenated in rank order. The backward keeps this
     rank's rows of the gradient: the consumer is replicated (the same
@@ -189,24 +168,28 @@ def all_gather_nodes(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def all_reduce_grads(mesh: Mesh, summed: Iterable[torch.nn.Parameter],
-                     averaged: Iterable[torch.nn.Parameter] = ()) -> None:
+                     averaged: Iterable[torch.nn.Parameter] = (),
+                     replicated: Iterable[torch.Tensor] = ()) -> None:
     """Sum the gradients of `summed` and average those of `averaged` over the
-    ranks, in one flat buffer. A parameter with no gradient gets a zero one
-    first, so that the buffers line up."""
+    ranks, and average the f32 tensors of `replicated` in place (state that
+    every rank computes alike: running statistics, seed banks, queues), in
+    one flat buffer. A parameter with no gradient gets a zero one first, so
+    that the buffers line up."""
     if mesh.group is None:
         return
-    summed, averaged = list(summed), list(averaged)
+    summed, averaged, replicated = list(summed), list(averaged), list(replicated)
     params = summed + averaged
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    targets = [p.grad for p in params] + replicated
     flat = torch.cat([p.grad.reshape(-1) for p in summed]
-                     + [p.grad.reshape(-1) / mesh.size for p in averaged])
+                     + [t.reshape(-1) / mesh.size for t in targets[len(summed):]])
     dist.all_reduce(flat, group=mesh.group)
     offset = 0
-    for p in params:
-        n = p.numel()
-        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+    for t in targets:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
 
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
@@ -50,8 +51,7 @@ from graphecho_torch.models.fpn import FPN
 from graphecho_torch.models.graph_matching import GModule
 from graphecho_torch.models.tgcn import TGCN
 from graphecho_torch.ops.sampling import masks_to_boxes, sample_nodes
-from graphecho_torch.parallel.mesh import (Mesh, all_gather_nodes, all_reduce_grads,
-                                           all_reduce_sum)
+from graphecho_torch.parallel.mesh import Mesh, all_gather_nodes, all_reduce_grads
 from graphecho_torch.train import cycle
 from graphecho_torch.train.losses import bce_with_logits, dice_loss
 from graphecho_torch.train.metrics import confusion_counts
@@ -180,6 +180,8 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
         # cardiac trainer: full channels, dice+bce (`train_cardiac_uda.py:228`)
         return dice_loss(pred, masks) + bce_with_logits(pred, masks)
 
+    grouped: List[nn.Module] = []  # the FPNs whose BatchNorms reduce over the mesh
+
     def train_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         fpn = state.net.module
         for comp in state.components():
@@ -189,8 +191,9 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
         extra: Dict[str, torch.Tensor] = {}  # reported, not summed
 
         dev = state.device
-        if mesh is not None:
+        if mesh is not None and fpn not in grouped:
             set_batch_norm_group(fpn, mesh.group)
+            grouped.append(fpn)
         with torch.no_grad():
             masks = gather(to_nchw(batch["masks"], dev))
         if t.temporal_graph:
@@ -326,11 +329,14 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
             with record_function("step.all_reduce"):
                 # the FPN's rows differ by rank: its gradients are summed.
                 # Everything after the gather is replicated; its gradients
-                # differ between cards only by the rounding of atomics, and
-                # their mean keeps the replicas equal to the bit
+                # and the state it updates differ between cards only by the
+                # rounding of atomics, and their mean keeps the replicas
+                # equal to the bit
+                others = [comp.module for comp in state.components() if comp is not state.net]
                 all_reduce_grads(mesh, fpn.parameters(),
-                                 (p for comp in state.components() if comp is not state.net
-                                  for p in comp.module.parameters()))
+                                 (p for m in others for p in m.parameters()),
+                                 [*(b for m in others for b in m.buffers()),
+                                  *(new_seeds or ()), *(new_queues or ())])
         with record_function("step.optimizers"):
             for comp in state.components():
                 comp.apply_gradients(state.step)
@@ -385,8 +391,9 @@ def make_eval_step(cfg: ExperimentConfig, drop_bg_channel: bool = False,
         counts, per_part, loss = score(fpn, imgs, masks)
         keys = list(counts)
         parts = [(p, k) for p, c in per_part.items() for k in c]
-        flat = all_reduce_sum(torch.stack([loss.float()] + [counts[k] for k in keys]
-                                          + [per_part[p][k] for p, k in parts]), mesh.group)
+        flat = torch.stack([loss.float()] + [counts[k] for k in keys]
+                           + [per_part[p][k] for p, k in parts])
+        dist.all_reduce(flat, group=mesh.group)
         counts = dict(zip(keys, flat[1:1 + len(keys)]))
         per_part = {}
         for (p, k), v in zip(parts, flat[1 + len(keys):]):

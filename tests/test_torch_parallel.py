@@ -139,7 +139,7 @@ def _worker(rank: int, world: int, port: int, branch: str, out: str) -> None:
     """One rank of the two-process run (this file run as a script)."""
     import torch.distributed as dist
 
-    from graphecho_torch.parallel.mesh import max_abs_spread
+    from graphecho_torch.parallel.mesh import all_reduce_grads, max_abs_spread
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
@@ -153,8 +153,11 @@ def _worker(rank: int, world: int, port: int, branch: str, out: str) -> None:
                       for t in c.module.parameters()]
         spread = {"fpn": max_abs_spread(mesh, list(state.net.module.parameters())),
                   "replicated": max_abs_spread(mesh, replicated)}
-        torch.save({"losses": losses, "tensors": tensors, "evals": evals, "spread": spread},
-                   out)
+        # replicated state that drifted apart (rank r holding r) is averaged
+        drift = torch.full((3,), float(rank))
+        all_reduce_grads(mesh, (), (), [drift])
+        torch.save({"losses": losses, "tensors": tensors, "evals": evals, "spread": spread,
+                    "drift": drift}, out)
     finally:
         dist.destroy_process_group()
 
@@ -183,6 +186,7 @@ def test_two_gloo_processes_equal_one_process(branch, tmp_path):
     want_losses, want_tensors, want_evals, _ = _run(branch)
     for r, got in enumerate(ranks):
         assert got["spread"] == {"fpn": 0.0, "replicated": 0.0}, got["spread"]
+        assert got["drift"].tolist() == [0.5] * 3
         assert set(got["losses"]) == set(want_losses)
         for k, v in want_losses.items():
             np.testing.assert_allclose(got["losses"][k], v, rtol=RTOL, atol=ATOL,
