@@ -3,8 +3,8 @@ holds each against its plain PyTorch version, drives the CAMUS->EchoNet and
 CardiacUDA train steps at full width, with every branch (temporal TGCN,
 64-frame cycle loss) too, in f32, in bf16 and data parallel over an NCCL
 process group, serves both trained models in bf16, f32 and int8, runs the
-pvig_s ViG classifier in f32 and bf16, and the profiling and `.pth` import
-tooling.
+pvig_s ViG classifier in f32 and bf16, the profiling and `.pth` import
+tooling, and a training rehearsal that must learn and resume exactly.
 
     python3 chip_smoke.py
 
@@ -120,7 +120,11 @@ Phases, each printing one JSON line:
      checkpoint at step 2 + 1; run again, it resumes from there and ends
      three epochs later. Printed: the real-data step ms beside the synthetic
      cardiac_full step of this run, the loader's wait per step, peak memory,
-     the checkpoint's size and its save and restore times;
+     the checkpoint's size and its save and restore times, and the host ms
+     of one item of each kind (frame, clip, 64-frame cycle clip) through the
+     C++ resize of `data/native.py` (built with g++ on this host, which must
+     succeed) and through the numpy one, whose items must be equal bit for
+     bit;
   7. vig reference: a small DeepGCN on the card (kNN kernel) and on the CPU
      (plain kNN) from the same weights and images, logits within rtol 1e-3 /
      atol 1e-4;
@@ -137,11 +141,21 @@ Phases, each printing one JSON line:
      small train step holding CUDA kernels and the step's ranges,
      `StepTimer` (synchronising the card) times four, and a `.pth` of the
      full-width cardiac FPN under upstream's keys loads through
-     `Trainer.init_state(torch_init=...)` bit-equal.
+     `Trainer.init_state(torch_init=...)` bit-equal;
+ 10. rehearsal: `python -m graphecho_torch.train_rehearsal` (camus_temporal
+     in bf16 at full width, 4 epochs of 20 steps) as subprocesses under
+     `torch.use_deterministic_algorithms(True)`: once uninterrupted and, side
+     by side, once SIGTERMed after step 50 (it stops after step 51 with a
+     checkpoint) and run again, when it says it resumed at step 51. The last
+     epoch's seg_loss below the first's, its eval dice above the first's and
+     at least 0.85, the resumed curve equal to the uninterrupted one to the
+     printed digit (`rehearsal_report --resume`), and 2, 2 and 8 launches a
+     step in each process.
 Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
 path driven, `cardiac_real step`, `serve`, `bf16 cardiac_full step`, `dp
-cardiac_full step` and the f32 and bf16 pvig_s forwards among them), the
+cardiac_full step`, `rehearsal step` and the f32 and bf16 pvig_s forwards
+among them), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
@@ -149,6 +163,8 @@ without a CUDA device the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -198,6 +214,11 @@ REAL_SHAPE = (288, 352, 64)
 SERVE_BATCH, SERVE_FRAMES, SERVE_AGREE = 256, 300, 0.98
 SERVE_CONFIDENT, SERVE_MORE_STEPS = 0.5, 27
 REAL_PATIENTS = {"Site_G": 36, "Site_R": 4, "Site_R_full": 2}
+# the rehearsal phase: camus_temporal in bf16, (epochs, steps an epoch), the
+# step after which one run is SIGTERMed and the dice its last epoch must reach
+REHEARSAL_SHAPE, REHEARSAL_STOP, REHEARSAL_DICE = (4, 20), 50, 0.85
+REHEARSAL_FLAGS = ("--recipe", "camus_temporal", "--bf16", "--epochs", str(REHEARSAL_SHAPE[0]),
+                   "--steps-per-epoch", str(REHEARSAL_SHAPE[1]))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1420,14 +1441,43 @@ def write_cardiac_fixture(root: Path) -> Path:
     return infos
 
 
+class _plain_transforms:
+    """Within the block the loaders resize with the numpy version
+    (`transforms.nearest_resize_plain`) instead of the C++ kernel."""
+
+    def __enter__(self):
+        from graphecho_torch.data import cardiac_uda, transforms
+
+        self.saved = [(m, m.nearest_resize) for m in (transforms, cardiac_uda)]
+        for m, _ in self.saved:
+            m.nearest_resize = transforms.nearest_resize_plain
+
+    def __exit__(self, *exc):
+        for m, fn in self.saved:
+            m.nearest_resize = fn
+
+
+def _items_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_items_equal(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
 def _loader_item_ms(root: Path, infos: Path) -> dict:
     """Host ms of one item of each kind a cardiac_real step loads (16 source
     and 8 target frames, 4 + 4 clips, one cycle clip), read one at a time,
-    and of reading one volume: where the loaders' time goes."""
+    through the C++ resize (`data/native.py`, built on this host) and
+    through the numpy one, whose items must be equal bit for bit; and of
+    reading one volume: where the loaders' time goes."""
     from graphecho_torch.config import cardiac_uda_config
+    from graphecho_torch.data import native
     from graphecho_torch.data.cardiac_uda import SegCardiacUDADataset
     from graphecho_torch.data.formats import read_nifti
 
+    t0 = time.perf_counter()
+    check(native.available(), "the native data library did not load")
+    build_s = time.perf_counter() - t0
     cfg = cardiac_uda_config()
     d = cfg.data
     infos = np.load(infos, allow_pickle=True).item()
@@ -1437,14 +1487,19 @@ def _loader_item_ms(root: Path, infos: Path) -> dict:
                           total_length=d.total_length),
              "cycle_clip": dict(single_frame=False, clip_length=cfg.cycle.clip_length,
                                 total_length=cfg.cycle.clip_length)}
-    out = {}
+    out = {"native": {}, "plain": {}, "native_build_or_load_s": build_s,
+           "native_library": native.library_path().name}
     for name, kw in kinds.items():
-        ds = SegCardiacUDADataset(infos, str(root), is_train=True, set_select=("Site_G",),
-                                  **dims, **kw)
-        t0 = time.perf_counter()
-        for i in range(3):
-            ds[i]
-        out[name] = (time.perf_counter() - t0) / 3 * 1e3
+        items = {}
+        for path in ("native", "plain"):
+            ds = SegCardiacUDADataset(infos, str(root), is_train=True, set_select=("Site_G",),
+                                      **dims, **kw)
+            with _plain_transforms() if path == "plain" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                items[path] = [ds[i] for i in range(3)]
+                out[path][name] = (time.perf_counter() - t0) / 3 * 1e3
+        check(_items_equal(tuple(items["native"]), tuple(items["plain"])),
+              f"loader {name} items differ between the C++ and the numpy resize")
     t0 = time.perf_counter()
     read_nifti(next(iter(infos.values()))["views_images"][d.view_num])
     out["read_nifti_volume"] = (time.perf_counter() - t0) * 1e3
@@ -1598,6 +1653,126 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
          preempted_at_step=n, resumed_to_step=n + 3 * spe, cli_seconds=cli_s, card=card,
          cfg="train_cardiac_uda CLI defaults --temporal-graph --cyc-loss")
     return {k: int(v) for k, v in per_step.items()}
+
+
+def _rehearsal_cmd(tmp: Path, run: str, name: str, *flags: str):
+    """`python -m graphecho_torch.train_rehearsal` under deterministic
+    algorithms into `tmp/<run>` and `tmp/<run>.jsonl`, writing the launch
+    counters of the process to `tmp/<name>.launches.json` at its exit;
+    returns (the command, that file)."""
+    counts = tmp / f"{name}.launches.json"
+    code = ("import atexit, json, torch; torch.use_deterministic_algorithms(True); "
+            "from graphecho_torch.ops import knn, pairwise_mlp as pm; "
+            f"atexit.register(lambda: open({str(counts)!r}, 'w').write("
+            "json.dumps({**pm.LAUNCHES, **knn.LAUNCHES}))); "
+            "import runpy; runpy.run_module('graphecho_torch.train_rehearsal', run_name='__main__')")
+    flags = [*REHEARSAL_FLAGS, "--ckpt", str(tmp / run), "--out", str(tmp / f"{run}.jsonl"),
+             *flags]
+    return [sys.executable, "-c", code, *flags], counts
+
+
+def _run_rehearsals(cmds, then, tmp: Path) -> dict:
+    """Run the commands `cmds` side by side, each to its end, and each of
+    `then` ({name: (after, command)}) as soon as the run `after` has ended
+    with exit code 0; returns {name: (exit code, seconds)}. Each writes its
+    output to `tmp/<name>.log`. No process outlives this."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    running, done, logs = {}, {}, []
+
+    def start(name, cmd):
+        logs.append(open(tmp / f"{name}.log", "wb"))
+        running[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=logs[-1], stderr=logs[-1],
+                                          env=env), time.perf_counter())
+
+    try:
+        for name, cmd in cmds.items():
+            start(name, cmd)
+        deadline = time.monotonic() + 900
+        while running:
+            check(time.monotonic() < deadline, f"rehearsal: {sorted(running)} still running")
+            for name, (proc, t0) in list(running.items()):
+                if proc.poll() is not None:
+                    done[name] = (proc.returncode, time.perf_counter() - t0)
+                    del running[name]
+                    for later, (after, cmd) in then.items():
+                        if after == name and proc.returncode == 0:
+                            start(later, cmd)
+            time.sleep(0.1)
+    finally:
+        for proc, _ in running.values():
+            proc.kill()
+            proc.wait()
+        for log in logs:
+            log.close()
+    return done
+
+
+def phase_rehearsal(card: str) -> dict:
+    """camus_temporal in bf16 at full width through `python -m
+    graphecho_torch.train_rehearsal`: 4 epochs of 20 steps uninterrupted and,
+    side by side, SIGTERMed after step 50 and run again to its end. The
+    resumed run says it resumed, the loss falls, the dice rises to
+    REHEARSAL_DICE and the resumed curve equals the uninterrupted one to the
+    printed digit (`rehearsal_report`); returns the launches per step."""
+    from graphecho_torch import rehearsal_report
+    from graphecho_torch.train_rehearsal import recipe_config
+
+    frames = recipe_config("camus_temporal", bf16=True).tgcn.clip_shape[0]
+    torch.cuda.empty_cache()  # the card's memory to the two processes
+    tmp = Path(tempfile.mkdtemp(prefix="rehearsal_"))
+    try:
+        straight, straight_counts = _rehearsal_cmd(tmp, "straight", "straight")
+        stopped, stopped_counts = _rehearsal_cmd(tmp, "preempted", "preempted.1",
+                                                 "--sigterm-at-step", str(REHEARSAL_STOP))
+        resumed, resumed_counts = _rehearsal_cmd(tmp, "preempted", "preempted.2")
+        t0 = time.perf_counter()
+        runs = _run_rehearsals({"straight": straight, "preempted.1": stopped},
+                               {"preempted.2": ("preempted.1", resumed)}, tmp)
+        phase_s = time.perf_counter() - t0
+        logs = {name: (tmp / f"{name}.log").read_text() for name in runs}
+        for name, (rc, _) in runs.items():
+            check(rc == 0, f"rehearsal: {name} exited {rc}: {logs[name][-2000:]}")
+        check("preempted.2" in runs, "rehearsal: the SIGTERMed run was not run again")
+        stop = REHEARSAL_STOP + 1
+        check(f"preemption signal at step {stop}" in logs["preempted.1"]
+              and f"resumed at step {stop}" in logs["preempted.2"],
+              "rehearsal: the SIGTERMed run did not stop and resume at step "
+              f"{stop}: {logs['preempted.1'][-1000:]} {logs['preempted.2'][-1000:]}")
+        rows = rehearsal_report.load(str(tmp / "straight.jsonl"))
+        res = rehearsal_report.load(str(tmp / "preempted.jsonl"))
+        epochs, spe = REHEARSAL_SHAPE
+        check([r["step"] for r in rows] == [spe * (e + 1) for e in range(epochs)]
+              and [r["step"] for r in res] == [r["step"] for r in rows],
+              f"rehearsal: epoch rows at steps {[r['step'] for r in rows]} and "
+              f"{[r['step'] for r in res]}")
+        first, last = rows[0], rows[-1]
+        check(last["seg_loss"] < first["seg_loss"], f"rehearsal: seg_loss did not fall: {rows}")
+        check(last["dice"] > first["dice"] and last["dice"] >= REHEARSAL_DICE,
+              f"rehearsal: dice {first['dice']} -> {last['dice']}, want a rise to "
+              f">= {REHEARSAL_DICE}")
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            rc = rehearsal_report.main([str(tmp / "straight.jsonl"), "--resume",
+                                        str(tmp / "preempted.jsonl"), "--every", "1"])
+        check(rc == 0, f"rehearsal: the resumed curve differs: {report.getvalue()}")
+        exact, dice_only, _ = rehearsal_report.overlay(rows, res)
+        steps = {"straight": epochs * spe, "preempted.1": stop, "preempted.2": epochs * spe - stop}
+        per_step = {}
+        for name, path in (("straight", straight_counts), ("preempted.1", stopped_counts),
+                           ("preempted.2", resumed_counts)):
+            counts = json.loads(path.read_text())
+            per_step[name] = {k: v / steps[name] for k, v in counts.items()}
+        want = {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": frames}
+        check(all(p == want for p in per_step.values()),
+              f"rehearsal: launches a step {per_step}, want {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("rehearsal", recipe="camus_temporal", bf16=True, epochs=epochs, steps_per_epoch=spe,
+         sigterm_at_step=REHEARSAL_STOP, curve=rows, resumed_curve=res, rows_equal=exact,
+         rows_equal_in_dice_alone=dice_only, launches_per_step=per_step["straight"],
+         seconds={name: sec for name, (_, sec) in runs.items()}, phase_seconds=phase_s,
+         deterministic_algorithms=True, card=card)
+    return {k: int(v) for k, v in per_step["straight"].items()}
 
 
 def phase_vig_reference():
@@ -1797,6 +1972,7 @@ def main() -> int:
     pvig, pvig_images_per_s = phase_vig(card)
     pvig_bf16 = phase_bf16_vig(card, pvig_images_per_s)
     phase_tools(card)
+    rehearsal = phase_rehearsal(card)
     rows["knn"] = knn_row
     # launches per cardiac_full step, the train step's path; beside them each path's
     for name, row in rows.items():
@@ -1806,7 +1982,8 @@ def main() -> int:
                                    "cardiac_real step": real[name],
                                    "serve": serve[name],
                                    "bf16 cardiac_full step": bf16[name],
-                                   "dp cardiac_full step": dp[name]}
+                                   "dp cardiac_full step": dp[name],
+                                   "rehearsal step": rehearsal[name]}
     knn_row["launches_by_path"]["pvig_s forward"] = pvig
     knn_row["launches_by_path"]["bf16 pvig_s forward"] = pvig_bf16
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -1,9 +1,10 @@
 """Threaded prefetching batch loader, port of `graphecho_tpu/data/loader.py`.
 
 Replaces the reference's `monai.data.DataLoader(num_workers=8)` worker pool:
-a thread pool decodes/transforms samples (gzip inflation and numpy's copies
-release the GIL), batches are collated into numpy arrays, and a small
-prefetch queue overlaps host decode with device steps.
+a thread pool decodes/transforms samples (gzip inflation, numpy's copies and
+the per-sample resize, which runs in the host C++ kernels of `data/native.py`
+called through ctypes, release the GIL), batches are collated into numpy
+arrays, and a small prefetch queue overlaps host decode with device steps.
 """
 
 from __future__ import annotations

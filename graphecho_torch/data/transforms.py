@@ -1,12 +1,17 @@
 """Host-side image transforms matching the reference's MONAI pipeline, a
-numpy port of `graphecho_tpu/data/transforms.py`.
+port of `graphecho_tpu/data/transforms.py`.
 
 The reference composes AddChannel → Resized(mode='nearest') →
 RandSpatialCrop/CenterSpatialCrop → EnsureType (`datasets/camus.py:142-158`,
 `cardiac_uda.py:269-285`; the RandFlips it constructs are never added to the
-Compose). Nearest resize takes source index floor(i*in/out) in exact integer
-arithmetic, the indices the JAX package's native C++ path
-(`native/dataops.cpp`) computes; the port has no native binding.
+Compose). `nearest_resize` of float32 and uint8 arrays and `polygon_mask` run
+in the host C++ kernels of `data/native.py` (`csrc/dataops.cpp`, a copy of the
+JAX package's `native/dataops.cpp`), where the JAX transforms call theirs;
+other dtypes take the numpy versions, `nearest_resize_plain` and
+`polygon_mask_plain`, which compute the same bytes. Nearest resize takes
+source index floor(i*in/out): the C++ kernel as floor(i*(double)in/out), the
+numpy version in exact integer arithmetic, equal for every size a loader
+meets (`tests/test_torch_native.py`).
 
 `polygon_mask` replaces `skimage.draw.polygon` for the EchoNet LV-trace
 rasterization (`datasets/echo.py:243-255`): even-odd scanline fill.
@@ -14,14 +19,28 @@ rasterization (`datasets/echo.py:243-255`): even-odd scanline fill.
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from graphecho_torch.data import native
+
 
 def nearest_resize(arr: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """Nearest resize of the LEADING two spatial dims (H, W, ...) with torch
-    'nearest' semantics."""
+    'nearest' semantics; float32 and uint8 in the C++ kernel."""
+    h, w = arr.shape[:2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return arr
+    if arr.dtype in native.DTYPES:
+        return native.nearest_resize(arr, oh, ow)
+    return nearest_resize_plain(arr, out_hw)
+
+
+def nearest_resize_plain(arr: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """`nearest_resize` in numpy, for any dtype."""
     h, w = arr.shape[:2]
     oh, ow = out_hw
     if (h, w) == (oh, ow):
@@ -76,8 +95,14 @@ def resize_and_crop(images: np.ndarray, masks: Optional[np.ndarray],
 def polygon_mask(ys: Sequence[float], xs: Sequence[float],
                  shape: Tuple[int, int]) -> np.ndarray:
     """Rasterize a polygon to a float32 {0,1} mask (even-odd scanline fill;
-    replaces `skimage.draw.polygon` in the EchoNet trace pipeline), the
-    JAX package's native C++ fill (`native/dataops.cpp::ge_polygon_mask`)."""
+    replaces `skimage.draw.polygon` in the EchoNet trace pipeline) in the
+    C++ kernel (`csrc/dataops.cpp::ge_polygon_mask`)."""
+    return native.polygon_mask(ys, xs, shape)
+
+
+def polygon_mask_plain(ys: Sequence[float], xs: Sequence[float],
+                       shape: Tuple[int, int]) -> np.ndarray:
+    """`polygon_mask` in numpy, the C++ fill line for line."""
     h, w = shape
     mask = np.zeros((h, w), np.float32)
     ys = np.asarray(ys, np.float64)
@@ -92,11 +117,13 @@ def polygon_mask(ys: Sequence[float], xs: Sequence[float],
         for i in range(n):
             if (ys[i] <= y < ys[j]) or (ys[j] <= y < ys[i]):
                 t = (y - ys[i]) / (ys[j] - ys[i])
-                nodes.append(xs[i] + t * (xs[j] - xs[i]))
+                # rounded once, as the fused multiply-add GCC makes of this
+                # line under -march=native on a CPU with FMA
+                nodes.append(float(Fraction(xs[i]) + Fraction(t) * Fraction(xs[j] - xs[i])))
             j = i
         nodes.sort()
         for k in range(0, len(nodes) - 1, 2):
-            # clamped to the row as `native/dataops.cpp` does (a span left
+            # clamped to the row as `csrc/dataops.cpp` does (a span left
             # of the image must not become a negative slice end)
             x0 = max(int(np.ceil(nodes[k])), 0)
             x1 = min(int(np.floor(nodes[k + 1])), w - 1)

@@ -167,3 +167,33 @@ def test_nothing_of_the_jax_package_is_left_unported():
     for path in sorted(PACKAGE.rglob("*.py")):
         text = path.read_text()
         assert "not ported" not in text and "NotImplementedError" not in text, path.name
+
+
+NEW_IN_THIS_SLICE = ("graphecho_torch.data.native", "graphecho_torch.train_rehearsal",
+                     "graphecho_torch.rehearsal_report")
+
+
+def test_the_data_kernels_and_the_rehearsal_are_held_here():
+    """The native data binding and the rehearsal modules are among the
+    modules every test above imports and reads, so the same rules hold them."""
+    assert set(NEW_IN_THIS_SLICE) <= set(_modules())
+
+
+def test_the_native_binding_builds_and_loads_its_own_library():
+    """`data/native.py` loads the library it builds from `csrc/dataops.cpp`
+    into `graphecho_torch/_build/`, never the JAX package's
+    `native/libdataops.so`, and imports nothing of the JAX package."""
+    code = (
+        "import sys\n"
+        "from graphecho_torch.data import native, transforms\n"
+        "import numpy as np\n"
+        "transforms.nearest_resize(np.zeros((4, 4, 1), np.float32), (8, 8))\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "libs = sorted({line.split()[-1] for line in maps.splitlines() if 'dataops' in line})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(libs, bad)\n"
+        "sys.exit(0 if len(libs) == 1 and '/graphecho_torch/_build/libdataops-' in libs[0]\n"
+        "         and not bad else 1)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
