@@ -124,7 +124,9 @@ Phases, each printing one JSON line:
      of one item of each kind (frame, clip, 64-frame cycle clip) through the
      C++ resize of `data/native.py` (built with g++ on this host, which must
      succeed) and through the numpy one, whose items must be equal bit for
-     bit;
+     bit. Neither the in-process run nor the CLI runs may have taken the
+     numpy fallback (`native.try_load`): no failure kept, no
+     `FallbackWarning` raised or in the CLI's output;
   7. vig reference: a small DeepGCN on the card (kNN kernel) and on the CPU
      (plain kNN) from the same weights and images, logits within rtol 1e-3 /
      atol 1e-4;
@@ -143,14 +145,17 @@ Phases, each printing one JSON line:
      full-width cardiac FPN under upstream's keys loads through
      `Trainer.init_state(torch_init=...)` bit-equal;
  10. rehearsal: `python -m graphecho_torch.train_rehearsal` (camus_temporal
-     in bf16 at full width, 4 epochs of 20 steps) as subprocesses under
-     `torch.use_deterministic_algorithms(True)`: once uninterrupted and, side
-     by side, once SIGTERMed after step 50 (it stops after step 51 with a
-     checkpoint) and run again, when it says it resumed at step 51. The last
-     epoch's seg_loss below the first's, its eval dice above the first's and
-     at least 0.85, the resumed curve equal to the uninterrupted one to the
-     printed digit (`rehearsal_report --resume`), and 2, 2 and 8 launches a
-     step in each process.
+     in bf16 at full width, 4 epochs of 20 steps) as subprocesses, with no
+     determinism set by this script (`CUBLAS_WORKSPACE_CONFIG` taken out of
+     their environment): once uninterrupted and, side by side, once
+     SIGTERMed after step 50 (it stops after step 51 with a checkpoint) and
+     run again, when it says it resumed at step 51. Each process reports at
+     its exit that it ran under deterministic algorithms with
+     `CUBLAS_WORKSPACE_CONFIG=:4096:8`, as the module sets them itself. The
+     last epoch's seg_loss below the first's, its eval dice above the first's
+     and at least 0.85, the resumed curve equal to the uninterrupted one to
+     the printed digit (`rehearsal_report --resume`), and 2, 2 and 8
+     launches a step in each process.
 Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
 path driven, `cardiac_real step`, `serve`, `bf16 cardiac_full step`, `dp
@@ -175,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1555,6 +1561,7 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
     a SIGTERMed and resumed CLI run; returns the launches per step."""
     from graphecho_torch import real_training
     from graphecho_torch import train_cardiac_uda as cli
+    from graphecho_torch.data import native
     from graphecho_torch.data.synthetic import SyntheticEchoData
     from graphecho_torch.train.checkpoint import CheckpointManager
     from graphecho_torch.train.trainer import Trainer
@@ -1571,7 +1578,12 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
         # one in-process run, counted: two epochs of two steps
         args = cli.build_parser().parse_args(flags + ["--epochs", "2",
                                                       "--save-dir", str(tmp / "run")])
-        trainer, launches, seconds = _drive(real_training.run_cardiac_uda, args=args)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer, launches, seconds = _drive(real_training.run_cardiac_uda, args=args)
+        fallbacks = [str(w.message) for w in caught if w.category is native.FallbackWarning]
+        check(not native._FAILED and not fallbacks,
+              f"cardiac_real: the loaders took the numpy fallback: {native._FAILED} {fallbacks}")
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         steps, spe = trainer.state.step, trainer.steps_per_epoch
         check(spe == 2 and steps == 4, f"cardiac_real: {steps} steps, {spe} an epoch")
@@ -1639,6 +1651,8 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
               "cardiac_real: the second CLI run did not resume")
         check(cli_ckpt.latest_step() == n + 3 * spe,
               f"cardiac_real: resumed run ended at {cli_ckpt.latest_step()}, want {n + 3 * spe}")
+        check("FallbackWarning" not in out.read_text(),
+              f"cardiac_real: the CLI's loaders took the numpy fallback: {out.read_text()[-2000:]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("cardiac_real", losses={k: means[k] for k in means if k.endswith("loss")}, dice=dices,
@@ -1649,22 +1663,24 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
          fixture={"frames": list(REAL_SHAPE), "patients": REAL_PATIENTS,
                   "seconds": fixture_s},
          checkpoint_mib=ckpt_mib, save_ms=save_ms, restore_ms=restore_ms,
-         restore_bit_equal=True, step_after_restore_equal=True,
+         restore_bit_equal=True, step_after_restore_equal=True, native_fallback=False,
          preempted_at_step=n, resumed_to_step=n + 3 * spe, cli_seconds=cli_s, card=card,
          cfg="train_cardiac_uda CLI defaults --temporal-graph --cyc-loss")
     return {k: int(v) for k, v in per_step.items()}
 
 
 def _rehearsal_cmd(tmp: Path, run: str, name: str, *flags: str):
-    """`python -m graphecho_torch.train_rehearsal` under deterministic
-    algorithms into `tmp/<run>` and `tmp/<run>.jsonl`, writing the launch
-    counters of the process to `tmp/<name>.launches.json` at its exit;
-    returns (the command, that file)."""
+    """`python -m graphecho_torch.train_rehearsal` into `tmp/<run>` and
+    `tmp/<run>.jsonl`, writing at its exit to `tmp/<name>.launches.json` the
+    launch counters of the process, whether deterministic algorithms were on
+    and its `CUBLAS_WORKSPACE_CONFIG`; returns (the command, that file)."""
     counts = tmp / f"{name}.launches.json"
-    code = ("import atexit, json, torch; torch.use_deterministic_algorithms(True); "
+    code = ("import atexit, json, os, torch; "
             "from graphecho_torch.ops import knn, pairwise_mlp as pm; "
-            f"atexit.register(lambda: open({str(counts)!r}, 'w').write("
-            "json.dumps({**pm.LAUNCHES, **knn.LAUNCHES}))); "
+            f"atexit.register(lambda: open({str(counts)!r}, 'w').write(json.dumps("
+            "{'launches': {**pm.LAUNCHES, **knn.LAUNCHES}, "
+            "'deterministic_algorithms': torch.are_deterministic_algorithms_enabled(), "
+            "'cublas_workspace_config': os.environ.get('CUBLAS_WORKSPACE_CONFIG')}))); "
             "import runpy; runpy.run_module('graphecho_torch.train_rehearsal', run_name='__main__')")
     flags = [*REHEARSAL_FLAGS, "--ckpt", str(tmp / run), "--out", str(tmp / f"{run}.jsonl"),
              *flags]
@@ -1675,8 +1691,9 @@ def _run_rehearsals(cmds, then, tmp: Path) -> dict:
     """Run the commands `cmds` side by side, each to its end, and each of
     `then` ({name: (after, command)}) as soon as the run `after` has ended
     with exit code 0; returns {name: (exit code, seconds)}. Each writes its
-    output to `tmp/<name>.log`. No process outlives this."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    output to `tmp/<name>.log`. No process outlives this. The module sets
+    its determinism itself: the children get no `CUBLAS_WORKSPACE_CONFIG`."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     running, done, logs = {}, {}, []
 
     def start(name, cmd):
@@ -1757,21 +1774,25 @@ def phase_rehearsal(card: str) -> dict:
         check(rc == 0, f"rehearsal: the resumed curve differs: {report.getvalue()}")
         exact, dice_only, _ = rehearsal_report.overlay(rows, res)
         steps = {"straight": epochs * spe, "preempted.1": stop, "preempted.2": epochs * spe - stop}
-        per_step = {}
+        per_step, determinism = {}, {}
         for name, path in (("straight", straight_counts), ("preempted.1", stopped_counts),
                            ("preempted.2", resumed_counts)):
-            counts = json.loads(path.read_text())
-            per_step[name] = {k: v / steps[name] for k, v in counts.items()}
+            report = json.loads(path.read_text())
+            per_step[name] = {k: v / steps[name] for k, v in report.pop("launches").items()}
+            determinism[name] = report
         want = {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": frames}
         check(all(p == want for p in per_step.values()),
               f"rehearsal: launches a step {per_step}, want {want}")
+        check(all(d == {"deterministic_algorithms": True, "cublas_workspace_config": ":4096:8"}
+                  for d in determinism.values()),
+              f"rehearsal: the module did not make itself deterministic: {determinism}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("rehearsal", recipe="camus_temporal", bf16=True, epochs=epochs, steps_per_epoch=spe,
          sigterm_at_step=REHEARSAL_STOP, curve=rows, resumed_curve=res, rows_equal=exact,
          rows_equal_in_dice_alone=dice_only, launches_per_step=per_step["straight"],
          seconds={name: sec for name, (_, sec) in runs.items()}, phase_seconds=phase_s,
-         deterministic_algorithms=True, card=card)
+         caller_set_determinism=False, children_reported=determinism, card=card)
     return {k: int(v) for k, v in per_step["straight"].items()}
 
 

@@ -9,11 +9,15 @@ depend on the CPU it was built on (and lets GCC contract the polygon fill's
 the source, the flags and what `-march=native` means on this host: a library
 built on one machine is never loaded on another. Nothing is built at import.
 
-One difference from the JAX binding: where the library cannot be built or
-loaded, the entry points raise an error that names the failed command instead
-of returning None for a numpy fallback. Arrays of a dtype the C ABI lacks
-(not float32 or uint8) are refused here; `data/transforms.py` sends them to
-its numpy versions, as the JAX package does.
+Where the library cannot be built or loaded (no g++ on the host, a read-only
+`_build/`), `load()`, `available()` and the entry points here raise an error
+that names the failed command. `try_load()` is what `data/transforms.py`
+calls: it returns None instead, warns once (`FallbackWarning`), and
+remembers the failure for the life of the process, as the JAX binding's
+`_TRIED` does, so that no later item starts g++ again; the transforms then
+take their numpy versions, as the JAX package's do. Arrays of a dtype the C
+ABI lacks (not float32 or uint8) are refused here; `data/transforms.py`
+sends them to its numpy versions too.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import os
 import platform
 import subprocess
 import threading
+import warnings
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,17 +45,28 @@ DTYPES = {np.dtype(np.float32): 0, np.dtype(np.uint8): 1}
 _LOCK = threading.Lock()
 # the loaded library by compiler command, so that g++ is asked once a process
 _LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+# why the library could not be built or loaded, by compiler command: once
+# failed, `try_load` asks g++ no more in this process
+_FAILED: Dict[Tuple[str, ...], str] = {}
+
+
+class CompilerError(RuntimeError):
+    """A compiler command that failed to start or exited non-zero."""
+
+
+class FallbackWarning(RuntimeWarning):
+    """The library could not be built or loaded; the numpy versions run."""
 
 
 def _run(cmd, **kwargs) -> subprocess.CompletedProcess:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, **kwargs)
     except OSError as e:
-        raise RuntimeError(f"the data kernels of graphecho_torch cannot be built: "
-                           f"{' '.join(cmd)} failed: {e}") from e
+        raise CompilerError(f"the data kernels of graphecho_torch cannot be built: "
+                            f"{' '.join(cmd)} failed: {e}") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"the data kernels of graphecho_torch cannot be built: "
-                           f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
+        raise CompilerError(f"the data kernels of graphecho_torch cannot be built: "
+                            f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stderr}")
     return proc
 
 
@@ -80,24 +96,46 @@ def build() -> Path:
     return out
 
 
+def _load(key: Tuple[str, ...]) -> ctypes.CDLL:
+    """`load()` with `_LOCK` held."""
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(build()))
+        i64 = ctypes.c_int64
+        lib.ge_nearest_resize_batch.argtypes = [
+            ctypes.c_void_p, i64, i64, i64, i64, ctypes.c_void_p, i64, i64, ctypes.c_int]
+        lib.ge_polygon_mask.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            i64, i64, i64, ctypes.POINTER(ctypes.c_float)]
+        lib.ge_normalize_u8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), i64, ctypes.POINTER(ctypes.c_float)]
+        _LIBS[key] = lib
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The ctypes handle of the library, built on first use; raises when it
     cannot be built or loaded."""
+    with _LOCK:
+        return _load((CXX, *CXX_FLAGS))
+
+
+def try_load() -> Optional[ctypes.CDLL]:
+    """`load()`, or None where the library cannot be built or loaded. The
+    first failure warns (`FallbackWarning`, naming the failed command) and is
+    kept: later calls return None at once, without starting g++."""
     key = (CXX, *CXX_FLAGS)
     with _LOCK:
-        lib = _LIBS.get(key)
-        if lib is None:
-            lib = ctypes.CDLL(str(build()))
-            i64 = ctypes.c_int64
-            lib.ge_nearest_resize_batch.argtypes = [
-                ctypes.c_void_p, i64, i64, i64, i64, ctypes.c_void_p, i64, i64, ctypes.c_int]
-            lib.ge_polygon_mask.argtypes = [
-                ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-                i64, i64, i64, ctypes.POINTER(ctypes.c_float)]
-            lib.ge_normalize_u8.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8), i64, ctypes.POINTER(ctypes.c_float)]
-            _LIBS[key] = lib
-        return lib
+        if key in _FAILED:
+            return None
+        try:
+            return _load(key)
+        except (CompilerError, OSError) as e:  # g++ failed or is missing; ctypes.CDLL failed
+            _FAILED[key] = str(e)
+    warnings.warn(f"{_FAILED[key]}\nthe numpy versions in graphecho_torch.data.transforms "
+                  "take over for the rest of this process (the same bytes)",
+                  FallbackWarning, stacklevel=3)
+    return None
 
 
 def available() -> bool:

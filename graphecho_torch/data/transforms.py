@@ -7,11 +7,18 @@ RandSpatialCrop/CenterSpatialCrop → EnsureType (`datasets/camus.py:142-158`,
 Compose). `nearest_resize` of float32 and uint8 arrays and `polygon_mask` run
 in the host C++ kernels of `data/native.py` (`csrc/dataops.cpp`, a copy of the
 JAX package's `native/dataops.cpp`), where the JAX transforms call theirs;
-other dtypes take the numpy versions, `nearest_resize_plain` and
-`polygon_mask_plain`, which compute the same bytes. Nearest resize takes
-source index floor(i*in/out): the C++ kernel as floor(i*(double)in/out), the
-numpy version in exact integer arithmetic, equal for every size a loader
-meets (`tests/test_torch_native.py`).
+other dtypes, and every call on a host where the library cannot be built or
+loaded (`native.try_load()` warns once), take the numpy versions,
+`nearest_resize_plain` and `polygon_mask_plain`, which compute the same
+bytes. Nearest resize takes source index floor(i*in/out): the C++ kernel as
+floor(i*(double)in/out), the numpy version in exact integer arithmetic, equal
+for every size a loader meets (`tests/test_torch_native.py`).
+
+The JAX package falls back too, but to numpy versions of its own (float
+index arithmetic, a fill rounded twice) that can differ from its C++ path.
+The port's fallback copies the C++ path instead, which is what the JAX
+package runs wherever it has a compiler: a host without g++ loads the same
+items and prepares the same frames as one with it.
 
 `polygon_mask` replaces `skimage.draw.polygon` for the EchoNet LV-trace
 rasterization (`datasets/echo.py:243-255`): even-odd scanline fill.
@@ -34,7 +41,7 @@ def nearest_resize(arr: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return arr
-    if arr.dtype in native.DTYPES:
+    if arr.dtype in native.DTYPES and native.try_load() is not None:
         return native.nearest_resize(arr, oh, ow)
     return nearest_resize_plain(arr, out_hw)
 
@@ -97,6 +104,8 @@ def polygon_mask(ys: Sequence[float], xs: Sequence[float],
     """Rasterize a polygon to a float32 {0,1} mask (even-odd scanline fill;
     replaces `skimage.draw.polygon` in the EchoNet trace pipeline) in the
     C++ kernel (`csrc/dataops.cpp::ge_polygon_mask`)."""
+    if native.try_load() is None:
+        return polygon_mask_plain(ys, xs, shape)
     return native.polygon_mask(ys, xs, shape)
 
 

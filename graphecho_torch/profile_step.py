@@ -13,13 +13,16 @@ of the camus Predictor's inference function (`serve.py`, random weights, as
 warm-up steps, then times `--steps` steps with the host clock (synchronized)
 and traces the same steps with `torch.profiler`. `--remat` and `--fused-fpn`
 switch those model options on; `--bf16` computes the step's FPN and TGCN (or
-pvig_s) in bf16 (`ModelConfig.compute_dtype`). Prints one JSON object: the steady step time,
-the peak device memory of the timed steps, the device's busy time per step
-(the union of its kernel intervals) and idle share, the number of kernel
-launches per step, the
-kNN-graph kernel's and the pairwise-MLP kernels' launches and device time per
-step, the host time in each phase of the step and the device time by kernel
-name. It needs a CUDA device and fails without one.
+pvig_s) in bf16 (`ModelConfig.compute_dtype`); `--deterministic` turns on
+deterministic algorithms first (`device.deterministic_algorithms`, as
+`train_rehearsal` does), to see what they cost. Prints one JSON object: the
+steady step time, the peak device memory of the timed steps, the device's
+busy time per step (the union of its kernel intervals) and idle share, the
+number of kernel launches per step, the kNN-graph kernel's and the
+pairwise-MLP kernels' launches and device time per step, the host time in
+each phase of the step, and the 40 kernel names and host ops (by the
+kernels each launched itself) with the most device time. It needs a CUDA
+device and fails without one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import statistics
 import time
@@ -36,6 +40,7 @@ import torch
 
 from graphecho_torch.config import ExperimentConfig, camus_echo_config, cardiac_uda_config
 from graphecho_torch.data.synthetic import SyntheticEchoData
+from graphecho_torch.device import deterministic_algorithms
 from graphecho_torch.models.vig import pvig_s
 from graphecho_torch.train.trainer import Trainer
 
@@ -125,7 +130,7 @@ def _step_fn(recipe: str, n: int, **model_options) -> Callable[[int], None]:
     return lambda i: trainer._train_step(trainer.state, batches[i])
 
 
-def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
+def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 40,
             **model_options) -> Dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
@@ -156,9 +161,11 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    # device events, without the device-side copies of the `step.*` spans
+    # device events, without the device-side copies of `record_function` spans
+    # (`step.*`, torch.optim's `Optimizer.step#...`): a span is no kernel, and
+    # it would count the gaps between its kernels as busy
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("step.")]
+               and not (e.is_user_annotation or e.name.startswith("step."))]
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_ms = _busy_us(intervals) / 1e3 / steps
     by_name: Dict[str, float] = {}
@@ -173,6 +180,12 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
         if e.name.startswith("step.") and e.device_type == torch.autograd.DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # device time by the host op that launched it (its kernels, not its children's)
+    by_op: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0:
+            by_op[e.name] = by_op.get(e.name, 0.0) + e.self_device_time_total
+    ranked_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
     knn = [e for e in kernels if "knn" in e.name]
     pairwise: Dict[str, float] = {}
     n_pairwise = 0
@@ -184,6 +197,8 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
     return {
         "recipe": recipe, "model_options": model_options,
         "device": torch.cuda.get_device_name(0), "steps": steps,
+        "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+        "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "step_ms": statistics.median(host_ms), "step_ms_all": host_ms,
         # the most device memory the timed steps held at once
         "peak_memory_gib": peak_gib,
@@ -200,10 +215,12 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 15,
         "host_ms_by_phase": {k: us / 1e3 / steps for k, us in sorted(spans.items())},
         "device_ms_by_kernel": [{"name": n[:120], "ms_per_step": us / 1e3 / steps,
                                  "share": us / total_us} for n, us in ranked],
+        "device_ms_by_op": [{"name": n[:120], "ms_per_step": us / 1e3 / steps}
+                            for n, us in ranked_ops],
     }
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--recipe", choices=sorted(RECIPES) + ["pvig_s", *SERVE_RECIPES],
                         default="camus")
@@ -215,7 +232,16 @@ def main() -> None:
                         help="one FPN call over the source, target and clip frames")
     parser.add_argument("--bf16", action="store_true",
                         help="compute the FPN and the TGCN (or pvig_s) in bf16")
-    args = parser.parse_args()
+    parser.add_argument("--deterministic", action="store_true",
+                        help="deterministic algorithms and a fixed cuBLAS workspace, "
+                             "as train_rehearsal runs")
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.deterministic:
+        deterministic_algorithms("cuda")  # before the recipe's first CUDA call
     options = {k: True for k, on in (("remat", args.remat),
                                      ("fused_fpn_forwards", args.fused_fpn)) if on}
     if args.bf16:

@@ -16,9 +16,14 @@ global step.
 
 The curve across an interruption equals the uninterrupted one: step s trains
 on `SyntheticEchoData(cfg, seed=data_seed + 1000 + s)`, the eval set is always
-`seed=data_seed + 99`, and the checkpoint holds every tensor of the state
+`seed=data_seed + 99`, the checkpoint holds every tensor of the state
 (weights, optimizer moments, BatchNorm statistics, seed banks, queues, the
-generator). `python -m graphecho_torch.rehearsal_report` compares the two.
+generator), and on CUDA every op is deterministic: `main` calls
+`device.deterministic_algorithms` before any CUDA work
+(`torch.use_deterministic_algorithms(True)`, `CUBLAS_WORKSPACE_CONFIG=:4096:8`;
+without them the card's atomics make two runs from one seed differ from the
+first epoch), and `run` on CUDA refuses to start without them.
+`python -m graphecho_torch.rehearsal_report` compares the two curves.
 
 Appends one JSON line an epoch to `--out`: {"recipe", "bf16", "step",
 "total_loss", "seg_loss", "dice", "step_seconds"}, each float rounded to 6
@@ -34,9 +39,11 @@ import os
 import signal
 from typing import Dict, Iterator, Optional
 
+import torch
+
 from graphecho_torch.config import ExperimentConfig
 from graphecho_torch.data.synthetic import SyntheticEchoData
-from graphecho_torch.device import resolve_device
+from graphecho_torch.device import deterministic_algorithms, resolve_device
 from graphecho_torch.profile_step import RECIPES
 from graphecho_torch.train.trainer import Trainer
 
@@ -55,8 +62,14 @@ def run(cfg: ExperimentConfig, *, recipe: str, bf16: bool, epochs: int, steps_pe
         data_seed: int = 7, device=None) -> Trainer:
     """Train `cfg` to `epochs` epochs of `steps_per_epoch` steps in all,
     resuming from the latest checkpoint in `ckpt`; appends the epoch rows to
-    `out` and returns the trainer."""
-    trainer = Trainer(cfg, device=resolve_device(device), checkpoint_dir=ckpt)
+    `out` and returns the trainer. On CUDA, deterministic algorithms must be
+    on (`device.deterministic_algorithms`), or the curve would not repeat."""
+    device = resolve_device(device)
+    if device.type == "cuda" and not torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError(
+            "train_rehearsal.run on CUDA needs deterministic algorithms: call "
+            "graphecho_torch.device.deterministic_algorithms(device) before any CUDA work")
+    trainer = Trainer(cfg, device=device, checkpoint_dir=ckpt)
     trainer.init_state()  # restores the latest checkpoint if there is one
     spe = steps_per_epoch
 
@@ -117,6 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    deterministic_algorithms(device)  # before the Trainer's first CUDA call
     run(recipe_config(args.recipe, args.bf16), recipe=args.recipe, bf16=args.bf16,
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, ckpt=args.ckpt, out=args.out,
         sigterm_at_step=args.sigterm_at_step, eval_samples=args.eval_samples,

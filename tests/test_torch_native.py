@@ -11,9 +11,16 @@ on the same seeded arrays, and against the port's numpy versions:
     vertices and with vertices outside the image; `normalize_u8`;
   * the transforms, the CAMUS and the CardiacUDA loaders go through the
     C++ kernels (counted) and their items still equal the JAX package's;
-  * a library that cannot be built raises, naming the command, and no
-    numpy result takes its place.
+  * a library that cannot be built: `native.available()` raises, naming the
+    command; the transforms and `serve.prep_frames` give the numpy versions'
+    bytes, the same as the library's, and warn once; the failure is kept,
+    so that no later call (from any thread) starts g++ again.
 """
+
+import subprocess
+import sys
+import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -217,20 +224,112 @@ def test_cardiac_uda_items_through_the_native_path_equal_the_jax_package(cardiac
     assert counted.calls["nearest_resize"] >= 2 * len(t)
 
 
+@pytest.fixture
+def failed_builds(monkeypatch):
+    """An empty failure cache, restored afterwards."""
+    monkeypatch.setattr(native, "_FAILED", {})
+
+
+def _fallbacks(record):
+    return [w for w in record if issubclass(w.category, native.FallbackWarning)]
+
+
+# an EchoNet trace: rounded vertices of a 112x112 frame
+_T = np.linspace(0, 2 * np.pi, 42, endpoint=False)
+TRACE = (np.rint(56 + 30 * np.sin(_T)), np.rint(50 + 20 * np.cos(_T) ** 3))
+
+
 @pytest.mark.parametrize("what", ["flag", "compiler"])
-def test_a_failed_build_raises_and_names_the_command(monkeypatch, what):
+def test_a_failed_build_raises_and_names_the_command(monkeypatch, failed_builds, what):
+    """`available()` raises; the transforms fall back to the numpy versions'
+    bytes, which are the library's, with one warning naming the command."""
     if what == "flag":
         monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-fno-such-flag",))
         match = "-fno-such-flag"
     else:
         monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
         match = "no-such-compiler-g\\+\\+"
-    arr = np.zeros((4, 4, 1), np.float32)
+    arr = (np.random.RandomState(8).rand(64, 64, 1) * 255).astype(np.float32)
     with pytest.raises(RuntimeError, match=match):
         native.available()
-    with pytest.raises(RuntimeError, match=match):
-        ttransforms.nearest_resize(arr, (8, 8))
-    with pytest.raises(RuntimeError, match=match):
-        ttransforms.polygon_mask([0, 3, 3], [0, 0, 3], (4, 4))
+    with pytest.warns(native.FallbackWarning, match=match) as record:
+        resized = ttransforms.nearest_resize(arr, (112, 112))
+        mask = ttransforms.polygon_mask(*TRACE, (112, 112))
+    assert len(_fallbacks(record)) == 1
+    _assert_items_equal(resized, ttransforms.nearest_resize_plain(arr, (112, 112)), "fallback")
+    _assert_items_equal(mask, ttransforms.polygon_mask_plain(*TRACE, (112, 112)), "fallback")
     monkeypatch.undo()
-    assert ttransforms.nearest_resize(arr, (8, 8)).shape == (8, 8, 1)
+    _assert_items_equal(ttransforms.nearest_resize(arr, (112, 112)), resized, "library")
+    _assert_items_equal(ttransforms.polygon_mask(*TRACE, (112, 112)), mask, "library")
+    assert mask.sum() > 500
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_prep_frames_without_the_library_gives_the_same_bytes(monkeypatch, failed_builds, dtype):
+    """Frames at another size than the model's, prepared with the library and
+    on a host where it cannot be built."""
+    from graphecho_torch import serve
+
+    frames = np.random.RandomState(9).rand(3, 64, 72)
+    frames = (frames * 255).astype(np.uint8) if dtype == np.uint8 else frames.astype(np.float32)
+    counted = _Counted(monkeypatch)
+    want = serve.prep_frames(frames, (112, 112))
+    assert counted.calls["nearest_resize"] == 3
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
+    with pytest.warns(native.FallbackWarning) as record:
+        got = serve.prep_frames(frames, (112, 112))
+    assert len(_fallbacks(record)) == 1 and counted.calls["nearest_resize"] == 3
+    assert got.shape == (3, 112, 112, 1) and got.dtype == np.float32
+    _assert_items_equal(got, want, "prep_frames without the library")
+
+
+def test_a_failure_is_kept_and_g_plus_plus_not_started_again(monkeypatch, failed_builds):
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
+    arr = np.ones((5, 6, 2), np.uint8)
+    with pytest.warns(native.FallbackWarning):
+        ttransforms.nearest_resize(arr, (8, 8))
+    runs = []
+    run = subprocess.run
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **kw: runs.append(a) or run(*a, **kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a second warning would raise
+        assert ttransforms.nearest_resize(arr, (8, 8)).shape == (8, 8, 2)
+        assert ttransforms.polygon_mask(*TRACE, (112, 112)).sum() > 500
+        assert native.try_load() is None
+    assert runs == []
+    # `load()` is not cached: it asks the compiler again, and raises
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        native.load()
+    assert len(runs) == 1
+
+
+def test_threads_that_meet_a_failed_build_start_g_plus_plus_once(monkeypatch, failed_builds):
+    """The loaders' threads resize at once: one of them asks the compiler,
+    one warning is given, every thread gets the numpy bytes."""
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
+    runs = []
+    run = subprocess.run
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **kw: runs.append(a) or run(*a, **kw))
+    arr = (np.random.RandomState(10).rand(33, 47, 3) * 255).astype(np.uint8)
+    want = ttransforms.nearest_resize_plain(arr, (64, 64))
+    results, start = [], threading.Barrier(16)
+
+    def work():
+        start.wait(timeout=30)
+        for _ in range(20):
+            results.append(ttransforms.nearest_resize(arr, (64, 64)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with pytest.warns(native.FallbackWarning) as record:
+            threads = [threading.Thread(target=work) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(runs) == 1 and len(_fallbacks(record)) == 1 and len(results) == 16 * 20
+    assert all(np.array_equal(r, want) for r in results)

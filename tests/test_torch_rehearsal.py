@@ -8,18 +8,24 @@ report (`graphecho_torch/rehearsal_report.py`) on the CPU, at a tiny size:
     epoch's loss means alone may differ); the report's check passes;
   * the same check fails on a copy with one dice changed in its last digit,
     with a second loss-only row, and with no overlap;
-  * the CLI refuses to run without a card unless `--device cpu` is given.
+  * the CLI refuses to run without a card unless `--device cpu` is given;
+  * on CUDA, `main` turns deterministic algorithms on and sets
+    `CUBLAS_WORKSPACE_CONFIG` before `run` (a foreign workspace value
+    raises), on the CPU it changes neither, and `run` on CUDA refuses to
+    start with them off; `profile_step --deterministic` turns them on before
+    it profiles.
 """
 
 import dataclasses
 import json
+import os
 import signal
 
 import pytest
 import torch
 
 from graphecho_torch import config as C
-from graphecho_torch import rehearsal_report, train_rehearsal
+from graphecho_torch import profile_step, rehearsal_report, train_rehearsal
 
 
 @pytest.fixture(autouse=True)
@@ -135,3 +141,84 @@ def test_the_cli_needs_a_card_unless_told_otherwise(tmp_path, monkeypatch):
     assert (seen["device"].type, seen["sigterm_at_step"], seen["epochs"], seen["bf16"]) == (
         "cpu", 5, 2, True)
     assert seen["cfg"].data.batch_size == 8 and seen["steps_per_epoch"] == 30
+
+
+@pytest.fixture
+def switch_off(monkeypatch):
+    """Deterministic algorithms off and CUBLAS_WORKSPACE_CONFIG unset, each
+    restored to what it was afterwards."""
+    on = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", "")  # recorded, so restored at teardown
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG")
+    torch.use_deterministic_algorithms(False)
+    yield
+    torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
+def _seen_by_run(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(train_rehearsal, "run", lambda cfg, **kw: seen.update(
+        deterministic=torch.are_deterministic_algorithms_enabled(),
+        workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"), device=kw["device"]))
+    return seen
+
+
+@pytest.mark.parametrize("workspace", [None, ":16:8"])
+def test_main_on_cuda_turns_deterministic_algorithms_on(tmp_path, monkeypatch, switch_off,
+                                                        workspace):
+    if workspace is not None:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", workspace)
+    seen = _seen_by_run(monkeypatch)
+    train_rehearsal.main(["--ckpt", str(tmp_path / "c"), "--out", str(tmp_path / "c.jsonl"),
+                          "--device", "cuda"])
+    assert seen == {"deterministic": True, "workspace": workspace or ":4096:8",
+                    "device": torch.device("cuda")}
+
+
+def test_main_on_the_cpu_changes_neither(tmp_path, monkeypatch, switch_off):
+    seen = _seen_by_run(monkeypatch)
+    train_rehearsal.main(["--ckpt", str(tmp_path / "c"), "--out", str(tmp_path / "c.jsonl"),
+                          "--device", "cpu"])
+    assert seen == {"deterministic": False, "workspace": None, "device": torch.device("cpu")}
+
+
+def test_a_foreign_cublas_workspace_raises(tmp_path, monkeypatch, switch_off):
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":0:0")
+    seen = _seen_by_run(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG=':0:0'"):
+        train_rehearsal.main(["--ckpt", str(tmp_path / "c"), "--out",
+                              str(tmp_path / "c.jsonl"), "--device", "cuda"])
+    assert seen == {} and not torch.are_deterministic_algorithms_enabled()
+
+
+def test_run_on_cuda_refuses_to_start_without_deterministic_algorithms(tmp_path, monkeypatch,
+                                                                       switch_off):
+    class Built(Exception):
+        pass
+
+    def trainer(*args, **kwargs):
+        raise Built
+    monkeypatch.setattr(train_rehearsal, "Trainer", trainer)
+    kw = dict(RUN, device="cuda", ckpt=str(tmp_path / "c"), out=str(tmp_path / "c.jsonl"))
+    with pytest.raises(RuntimeError, match="deterministic_algorithms"):
+        train_rehearsal.run(None, **kw)
+    torch.use_deterministic_algorithms(True)
+    with pytest.raises(Built):  # switched on, it goes on to build its Trainer
+        train_rehearsal.run(None, **kw)
+    assert not (tmp_path / "c.jsonl").exists()
+
+
+@pytest.mark.parametrize("flag", [[], ["--deterministic"]])
+def test_profile_step_turns_deterministic_algorithms_on_when_asked(monkeypatch, capsys,
+                                                                   switch_off, flag):
+    args = profile_step.build_parser().parse_args(["--recipe", "cardiac_full", "--bf16", *flag])
+    assert args.deterministic == bool(flag)
+    monkeypatch.setattr(profile_step, "profile", lambda recipe, steps, warmup, **options: {
+        "recipe": recipe, "options": options,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "workspace": os.environ.get("CUBLAS_WORKSPACE_CONFIG")})
+    profile_step.main(["--recipe", "cardiac_full", "--bf16", *flag])
+    assert json.loads(capsys.readouterr().out) == {
+        "recipe": "cardiac_full", "options": {"compute_dtype": "bfloat16"},
+        "deterministic": bool(flag), "workspace": ":4096:8" if flag else None}
