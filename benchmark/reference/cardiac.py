@@ -1,0 +1,5 @@
+"""Plain reference of the `cardiac` configuration: the CardiacUDA recipe
+(VGG16-FPN, the temporal graph and the cycle loss) in float32."""
+
+from benchmark.reference.uda import config  # noqa: F401  (the factories the config names)
+from benchmark.reference.uda.step import TrainReference, build_fpn  # noqa: F401
