@@ -40,6 +40,7 @@ from graphecho_torch.ops.sampling import NodeSet
 from graphecho_torch.ops.sinkhorn import sinkhorn_rpm
 from graphecho_torch.ops.spectral import seed_consistent_mean
 from graphecho_torch.train.losses import bce_focal_loss_probs, bce_with_logits, cross_entropy
+from graphecho_torch.utils.profiling import annotate
 
 _NORMAL = ("normal", 0.01)
 
@@ -275,7 +276,8 @@ class GModule(nn.Module):
         quadratic loss (`:604-607`), masked; 'm2m' (`:592-595`) skips the
         InstanceNorm and Sinkhorn and scores sigmoid(M)."""
         cfg = self.cfg
-        m = self.node_affinity(g1.nodes, g2.nodes)  # (N1, N2)
+        with annotate("step.gm.affinity"):
+            m = self.node_affinity(g1.nodes, g2.nodes)  # (N1, N2)
         pair_valid = g1.valid[:, None] & g2.valid[None, :]
         target = (g1.labels[:, None] == g2.labels[None, :]) & pair_valid
         n_pairs = pair_valid.to(m.dtype).sum().clamp_min(1.0)
@@ -291,8 +293,9 @@ class GModule(nn.Module):
             return matching_loss, (r.abs() * pair_valid).sum() / n_pairs
 
         m = _masked_instance_norm(m, pair_valid)
-        log_m = sinkhorn_rpm(m[None], n_iters=cfg.sinkhorn_iters, slack=True,
-                             row_mask=g1.valid[None], col_mask=g2.valid[None])[0]
+        with annotate("step.gm.sinkhorn"):
+            log_m = sinkhorn_rpm(m[None], n_iters=cfg.sinkhorn_iters, slack=True,
+                                 row_mask=g1.valid[None], col_mask=g2.valid[None])[0]
         m = torch.exp(log_m)
 
         # o2o: per valid row, the best same-class entry is a TP sample
@@ -325,70 +328,80 @@ class GModule(nn.Module):
         enough = (src.valid.sum() >= 6).float()
 
         if cfg.with_node_dis and cfg.node_dis_place == "feat":
-            losses["dis_loss"] = enough * self._node_dis_loss(
-                src.points, src.valid, tgt.points, tgt.valid)
+            with annotate("step.gm.node_cls"):
+                losses["dis_loss"] = enough * self._node_dis_loss(
+                    src.points, src.valid, tgt.points, tgt.valid)
 
-        nodes_s = self._head_in(src.points)
-        nodes_t = self._head_in(tgt.points)
-        g1, g2 = self._group_by_class(src, tgt, nodes_s, nodes_t, seeds, generator)
+        with annotate("step.gm.group"):
+            nodes_s = self._head_in(src.points)
+            nodes_t = self._head_in(tgt.points)
+            g1, g2 = self._group_by_class(src, tgt, nodes_s, nodes_t, seeds, generator)
 
         if cfg.with_complete_graph:
-            n1, edges_1 = self.intra_domain_graph(g1.nodes, g1.nodes, g1.nodes,
-                                                  key_mask=g1.valid, train=train,
-                                                  generator=generator)
-            n2, edges_2 = self.intra_domain_graph(g2.nodes, g2.nodes, g2.nodes,
-                                                  key_mask=g2.valid, train=train,
-                                                  generator=generator)
-            g1 = g1._replace(nodes=n1 * g1.valid[:, None])
-            g2 = g2._replace(nodes=n2 * g2.valid[:, None])
+            with annotate("step.gm.intra_graph"):
+                n1, edges_1 = self.intra_domain_graph(g1.nodes, g1.nodes, g1.nodes,
+                                                      key_mask=g1.valid, train=train,
+                                                      generator=generator)
+                n2, edges_2 = self.intra_domain_graph(g2.nodes, g2.nodes, g2.nodes,
+                                                      key_mask=g2.valid, train=train,
+                                                      generator=generator)
+                g1 = g1._replace(nodes=n1 * g1.valid[:, None])
+                g2 = g2._replace(nodes=n2 * g2.valid[:, None])
         else:
             edges_1 = edges_2 = nodes_s.new_zeros((g1.nodes.shape[0],) * 2)
 
         # seed bank EMA update, kept only when the gate is open (a select,
-        # not a branch: no host sync)
+        # not a branch); the spectral solve's `eigh` synchronises the host
+        # with the card (`ops/spectral.py`)
         sr_seed, tg_seed = seeds
         gate = enough > 0
-        new_sr = torch.where(gate, self._update_seeds(g1.nodes, g1.valid, sr_seed), sr_seed)
-        new_tg = torch.where(gate, self._update_seeds(g2.nodes, g2.valid, tg_seed), tg_seed)
+        with annotate("step.gm.seed_update"):
+            new_sr = torch.where(gate, self._update_seeds(g1.nodes, g1.valid, sr_seed), sr_seed)
+        with annotate("step.gm.seed_update"):
+            new_tg = torch.where(gate, self._update_seeds(g2.nodes, g2.valid, tg_seed), tg_seed)
 
         if cfg.with_node_dis and cfg.node_dis_place == "intra":
-            losses["dis_loss"] = enough * self._node_dis_loss(
-                g1.nodes, g1.valid, g2.nodes, g2.valid)
+            with annotate("step.gm.node_cls"):
+                losses["dis_loss"] = enough * self._node_dis_loss(
+                    g1.nodes, g1.valid, g2.nodes, g2.valid)
 
         if cfg.with_domain_interaction:
-            if cfg.with_global_graph:
-                # single attention over the union (`:491-498`)
-                n1l = g1.nodes.shape[0]
-                union = torch.cat([g1.nodes, g2.nodes], dim=0)
-                enhanced, _ = self.cross_domain_graph(
-                    union, union, union, key_mask=torch.cat([g1.valid, g2.valid]),
-                    train=train, generator=generator)
-                n1e, n2e = enhanced[:n1l], enhanced[n1l:]
-            else:
-                n2e, _ = self.cross_domain_graph(g1.nodes, g1.nodes, g2.nodes,
-                                                 key_mask=g1.valid, train=train,
-                                                 generator=generator)
-                n1e, _ = self.cross_domain_graph(g2.nodes, g2.nodes, g1.nodes,
-                                                 key_mask=g2.valid, train=train,
-                                                 generator=generator)
-            g1 = g1._replace(nodes=n1e * g1.valid[:, None])
-            g2 = g2._replace(nodes=n2e * g2.valid[:, None])
+            with annotate("step.gm.cross_graph"):
+                if cfg.with_global_graph:
+                    # single attention over the union (`:491-498`)
+                    n1l = g1.nodes.shape[0]
+                    union = torch.cat([g1.nodes, g2.nodes], dim=0)
+                    enhanced, _ = self.cross_domain_graph(
+                        union, union, union, key_mask=torch.cat([g1.valid, g2.valid]),
+                        train=train, generator=generator)
+                    n1e, n2e = enhanced[:n1l], enhanced[n1l:]
+                else:
+                    n2e, _ = self.cross_domain_graph(g1.nodes, g1.nodes, g2.nodes,
+                                                     key_mask=g1.valid, train=train,
+                                                     generator=generator)
+                    n1e, _ = self.cross_domain_graph(g2.nodes, g2.nodes, g1.nodes,
+                                                     key_mask=g2.valid, train=train,
+                                                     generator=generator)
+                g1 = g1._replace(nodes=n1e * g1.valid[:, None])
+                g2 = g2._replace(nodes=n2e * g2.valid[:, None])
 
-        if cfg.with_node_dis and cfg.node_dis_place == "inter":
-            losses["dis_loss"] = enough * self._node_dis_loss(
-                g1.nodes, g1.valid, g2.nodes, g2.valid)
+        with annotate("step.gm.node_cls"):
+            if cfg.with_node_dis and cfg.node_dis_place == "inter":
+                losses["dis_loss"] = enough * self._node_dis_loss(
+                    g1.nodes, g1.valid, g2.nodes, g2.valid)
 
-        # node classification (`:505-530`); with_score_weight scales each
-        # node's CE by its sampled confidence
-        all_nodes = torch.cat([g1.nodes, g2.nodes], dim=0)
-        logits = self.node_cls_2(F.relu(self.node_cls_1(all_nodes)))
-        ce_w = torch.cat([g1.weights, g2.weights]) if cfg.with_score_weight else None
-        losses["node_loss"] = enough * cfg.weight_nodes * cross_entropy(
-            logits, torch.cat([g1.labels, g2.labels]), weight=ce_w,
-            mask=torch.cat([g1.valid, g2.valid]))
+            # node classification (`:505-530`); with_score_weight scales each
+            # node's CE by its sampled confidence
+            all_nodes = torch.cat([g1.nodes, g2.nodes], dim=0)
+            logits = self.node_cls_2(F.relu(self.node_cls_1(all_nodes)))
+            ce_w = torch.cat([g1.weights, g2.weights]) if cfg.with_score_weight else None
+            losses["node_loss"] = enough * cfg.weight_nodes * cross_entropy(
+                logits, torch.cat([g1.labels, g2.labels]), weight=ce_w,
+                mask=torch.cat([g1.valid, g2.valid]))
 
         if cfg.matching_cfg != "none":
-            mat_aff, mat_qu = self._matching_losses(g1, g2, edges_1, edges_2)
+            with annotate("step.gm.matching"):
+                mat_aff, mat_qu = self._matching_losses(g1, g2, edges_1, edges_2)
             losses["mat_loss_aff"] = enough * cfg.weight_matching * mat_aff
             if cfg.with_quadratic_matching:
                 losses["mat_loss_qu"] = enough * mat_qu

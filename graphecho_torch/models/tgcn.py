@@ -52,6 +52,7 @@ from graphecho_torch.ops.knn import dilated_knn_graph
 from graphecho_torch.ops.resize import adaptive_avg_pool2d
 from graphecho_torch.ops.sinkhorn import sinkhorn_distance
 from graphecho_torch.train.losses import bce_with_logits, cross_entropy
+from graphecho_torch.utils.profiling import annotate
 
 DROPOUT = 0.1  # `TGCN.py:60,63-65`
 
@@ -118,64 +119,73 @@ class TGCN(nn.Module):
         losses: Dict[str, torch.Tensor] = {}
 
         # every frame of every level onto the grid in one batched pool a level
-        frames = torch.cat([adaptive_avg_pool2d(lvl.reshape(b * t_len, *lvl.shape[2:]), gh, gw)
-                            for lvl in pyramid_clips], dim=1)
-        frames = frames.reshape(b, t_len, -1, gh, gw)
+        with annotate("step.tg.fuse"):
+            frames = torch.cat([adaptive_avg_pool2d(lvl.reshape(b * t_len, *lvl.shape[2:]), gh, gw)
+                                for lvl in pyramid_clips], dim=1)
+            frames = frames.reshape(b, t_len, -1, gh, gw)
 
-        # the graph conv's output dtype, which the recurrence carries
-        hidden = frames.new_zeros(b, gh * gw, cfg.hidden_dim, dtype=self.dtype or frames.dtype)
-        for t in range(t_len):
-            x = self.gelu(self.mlp_bn(self.mlp_conv1(frames[:, t])))
-            x = attention.dropout(x, DROPOUT, train, generator)
-            x = self.mlp_conv2(x) + self.pos_embed[t]
-            x = x.flatten(2).transpose(1, 2)  # (B, N, C)
-            nn_idx = dilated_knn_graph(x, hidden, cfg.knn_k, 1)
-            hidden = self.mr_conv(x, nn_idx, hidden).transpose(1, 2)
+        with annotate("step.tg.recurrence"):
+            # the graph conv's output dtype, which the recurrence carries
+            hidden = frames.new_zeros(b, gh * gw, cfg.hidden_dim, dtype=self.dtype or frames.dtype)
+            for t in range(t_len):
+                x = self.gelu(self.mlp_bn(self.mlp_conv1(frames[:, t])))
+                x = attention.dropout(x, DROPOUT, train, generator)
+                x = self.mlp_conv2(x) + self.pos_embed[t]
+                x = x.flatten(2).transpose(1, 2)  # (B, N, C)
+                nn_idx = dilated_knn_graph(x, hidden, cfg.knn_k, 1)
+                hidden = self.mr_conv(x, nn_idx, hidden).transpose(1, 2)
 
         # prediction head -> clip embedding (B, hidden)
-        e = self.pred_conv(hidden.transpose(1, 2).reshape(b, -1, gh, gw))
-        e = attention.dropout(self.gelu(self.pred_bn(e)), DROPOUT, train, generator)
-        output_f = e.mean(dim=(2, 3))
+        with annotate("step.tg.head"):
+            e = self.pred_conv(hidden.transpose(1, 2).reshape(b, -1, gh, gw))
+            e = attention.dropout(self.gelu(self.pred_bn(e)), DROPOUT, train, generator)
+            output_f = e.mean(dim=(2, 3))
 
-        idx_s, idx_t = update_idx
-        queue_s, queue_t = queues
-        half = b // 2
-        if cfg.cluster_method == "momentum_queue":
-            q = F.normalize(output_f, dim=1, eps=1e-12)
-            # the loss reads the bank as it was before this step's update
-            bank = torch.cat([queue_s, queue_t], dim=-1).detach()
-            acc = torch.promote_types(q.dtype, bank.dtype)
-            l_pos = q.to(acc) @ bank.to(acc)
-            qd = q.detach()
-            queue_s = queue_update(queue_s, qd[:half], idx_s, cfg.queue_momentum)
-            queue_t = queue_update(queue_t, qd[half:], idx_t, cfg.queue_momentum)
-            labels = torch.cat([idx_s, idx_t + cfg.queue_size])
-            losses["clustering_loss"] = cross_entropy(l_pos, labels)
-        elif cfg.cluster_method == "linear_clustering":
-            losses["clustering_loss"] = (
-                cross_entropy(self.classifier_source(output_f[:half]), idx_s)
-                + cross_entropy(self.classifier_target(output_f[half:]), idx_t))
+            idx_s, idx_t = update_idx
+            queue_s, queue_t = queues
+            half = b // 2
+            if cfg.cluster_method == "momentum_queue":
+                q = F.normalize(output_f, dim=1, eps=1e-12)
+                # the loss reads the bank as it was before this step's update
+                bank = torch.cat([queue_s, queue_t], dim=-1).detach()
+                acc = torch.promote_types(q.dtype, bank.dtype)
+                l_pos = q.to(acc) @ bank.to(acc)
+                qd = q.detach()
+                queue_s = queue_update(queue_s, qd[:half], idx_s, cfg.queue_momentum)
+                queue_t = queue_update(queue_t, qd[half:], idx_t, cfg.queue_momentum)
+                labels = torch.cat([idx_s, idx_t + cfg.queue_size])
+                losses["clustering_loss"] = cross_entropy(l_pos, labels)
+            elif cfg.cluster_method == "linear_clustering":
+                losses["clustering_loss"] = (
+                    cross_entropy(self.classifier_source(output_f[:half]), idx_s)
+                    + cross_entropy(self.classifier_target(output_f[half:]), idx_t))
 
         # joint attention over [clip nodes; source nodes; target nodes]
-        out_g = hidden.reshape(b * gh * gw, -1)
-        all_nodes = torch.cat([out_g, source_nodes, target_nodes], dim=0)
-        key_mask = torch.cat([torch.ones(out_g.shape[0], dtype=torch.bool, device=out_g.device),
-                              source_valid, target_valid])
-        attended, _ = self.graph_attention(all_nodes, all_nodes, all_nodes, key_mask=key_mask,
-                                           train=train, generator=generator)
-        nodes_g = attended[:out_g.shape[0]].reshape(b, gh * gw, -1)
+        with annotate("step.tg.attention"):
+            out_g = hidden.reshape(b * gh * gw, -1)
+            all_nodes = torch.cat([out_g, source_nodes, target_nodes], dim=0)
+            key_mask = torch.cat([torch.ones(out_g.shape[0], dtype=torch.bool,
+                                             device=out_g.device),
+                                  source_valid, target_valid])
+            attended, _ = self.graph_attention(all_nodes, all_nodes, all_nodes,
+                                               key_mask=key_mask, train=train,
+                                               generator=generator)
+            nodes_g = attended[:out_g.shape[0]].reshape(b, gh * gw, -1)
 
-        if cfg.transport_method == "node_discriminate":
-            x = gradient_reversal(nodes_g.reshape(b * gh * gw, -1), 0.02)
-            for i in range(3):
-                x = F.relu(getattr(self, f"node_dis_ln_{i}")(getattr(self, f"node_dis_{i}")(x)))
-            logits = self.node_dis_out(x)[:, 0]
-            n_src = half * gh * gw
-            target = torch.cat([logits.new_ones(n_src), logits.new_zeros(logits.shape[0] - n_src)])
-            losses["node_dis_loss"] = 0.1 * bce_with_logits(logits, target)
-        elif cfg.transport_method == "sinkhorn_distance":
-            s = self.sinkhorn
-            cost, _, _ = sinkhorn_distance(nodes_g[:half], nodes_g[half:], eps=s.eps,
-                                           max_iter=s.max_iter, reduction=s.reduction)
-            losses["sinkhorn_loss"] = cost
+        with annotate("step.tg.transport"):
+            if cfg.transport_method == "node_discriminate":
+                x = gradient_reversal(nodes_g.reshape(b * gh * gw, -1), 0.02)
+                for i in range(3):
+                    x = F.relu(getattr(self, f"node_dis_ln_{i}")(
+                        getattr(self, f"node_dis_{i}")(x)))
+                logits = self.node_dis_out(x)[:, 0]
+                n_src = half * gh * gw
+                target = torch.cat([logits.new_ones(n_src),
+                                    logits.new_zeros(logits.shape[0] - n_src)])
+                losses["node_dis_loss"] = 0.1 * bce_with_logits(logits, target)
+            elif cfg.transport_method == "sinkhorn_distance":
+                s = self.sinkhorn
+                cost, _, _ = sinkhorn_distance(nodes_g[:half], nodes_g[half:], eps=s.eps,
+                                               max_iter=s.max_iter, reduction=s.reduction)
+                losses["sinkhorn_loss"] = cost
         return losses, (queue_s, queue_t)

@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from graphecho_torch.utils.profiling import annotate
+
 _BIG_RITZ = 1e3  # dead Krylov slots are parked above the spectrum
 
 
@@ -147,44 +149,49 @@ def spectral_bipartition(points: torch.Tensor, valid: torch.Tensor,
         k = fvalid.sum(-1).to(torch.int64) // 2
     k = k.clamp_min(1)
 
-    eye = torch.eye(n, dtype=torch.bool, device=points.device)
-    pair_valid = valid[:, :, None] & valid[:, None, :]
-    d = torch.where(pair_valid, _pairwise_sq_dists(points), 1e9)
-    d = torch.where(eye, 1e9, d)  # exclude self from the kNN
-    # rank-based kNN via a double stable argsort, as the JAX package does
-    order = torch.argsort(d, dim=-1, stable=True)
-    rank = torch.argsort(order, dim=-1, stable=True)
-    a = ((rank < k[:, None, None]) & pair_valid).to(points.dtype)
-    a = 0.5 * (a + a.transpose(1, 2))
+    with annotate("step.gm.laplacian"):
+        eye = torch.eye(n, dtype=torch.bool, device=points.device)
+        pair_valid = valid[:, :, None] & valid[:, None, :]
+        d = torch.where(pair_valid, _pairwise_sq_dists(points), 1e9)
+        d = torch.where(eye, 1e9, d)  # exclude self from the kNN
+        # rank-based kNN via a double stable argsort, as the JAX package does
+        order = torch.argsort(d, dim=-1, stable=True)
+        rank = torch.argsort(order, dim=-1, stable=True)
+        a = ((rank < k[:, None, None]) & pair_valid).to(points.dtype)
+        a = 0.5 * (a + a.transpose(1, 2))
 
-    deg = a.sum(-1)
-    inv_sqrt = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), 0.0)
-    lap = eye.to(points.dtype) - inv_sqrt[:, :, None] * a * inv_sqrt[:, None, :]
-    lap = lap + torch.diag_embed(10.0 * (1.0 - fvalid))
+        deg = a.sum(-1)
+        inv_sqrt = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), 0.0)
+        lap = eye.to(points.dtype) - inv_sqrt[:, :, None] * a * inv_sqrt[:, None, :]
+        lap = lap + torch.diag_embed(10.0 * (1.0 - fvalid))
 
-    if solver == "lanczos":
-        fiedler, residual, missed_lower = _fiedler_lanczos(
-            lap, deg, fvalid, m=min(lanczos_steps, max(n - 1, 1)),
-            probe_margin=ritz_tol)
-        solve_ok = (residual <= ritz_tol) & ~missed_lower
-    elif solver == "eigh":
-        fiedler = torch.linalg.eigh(lap)[1][:, :, 1]  # second-smallest
-        solve_ok = torch.ones(bsz, dtype=torch.bool, device=points.device)
-    else:
-        raise ValueError(f"unknown spectral solver {solver!r}")
+    # on a CUDA card `torch.linalg.eigh` synchronises the host with it: once
+    # for "eigh", twice for "lanczos"
+    with annotate("step.gm.fiedler"):
+        if solver == "lanczos":
+            fiedler, residual, missed_lower = _fiedler_lanczos(
+                lap, deg, fvalid, m=min(lanczos_steps, max(n - 1, 1)),
+                probe_margin=ritz_tol)
+            solve_ok = (residual <= ritz_tol) & ~missed_lower
+        elif solver == "eigh":
+            fiedler = torch.linalg.eigh(lap)[1][:, :, 1]  # second-smallest
+            solve_ok = torch.ones(bsz, dtype=torch.bool, device=points.device)
+        else:
+            raise ValueError(f"unknown spectral solver {solver!r}")
 
     # 1-D 2-means on the Fiedler values of the valid entries
-    vmin = torch.where(valid, fiedler, float("inf")).amin(-1)
-    vmax = torch.where(valid, fiedler, float("-inf")).amax(-1)
-    centers = torch.stack([vmin, vmax], dim=-1)
-    for _ in range(kmeans_iters):
+    with annotate("step.gm.kmeans"):
+        vmin = torch.where(valid, fiedler, float("inf")).amin(-1)
+        vmax = torch.where(valid, fiedler, float("-inf")).amax(-1)
+        centers = torch.stack([vmin, vmax], dim=-1)
+        for _ in range(kmeans_iters):
+            assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
+            member = [(assign == c) & valid for c in (0, 1)]
+            sums = torch.stack([torch.where(mb, fiedler, 0.0).sum(-1) for mb in member], -1)
+            cnts = torch.stack([mb.to(points.dtype).sum(-1) for mb in member], -1)
+            centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
         assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
-        member = [(assign == c) & valid for c in (0, 1)]
-        sums = torch.stack([torch.where(mb, fiedler, 0.0).sum(-1) for mb in member], -1)
-        cnts = torch.stack([mb.to(points.dtype).sum(-1) for mb in member], -1)
-        centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
-    assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
-    assign = torch.where(valid, assign, -1)
+        assign = torch.where(valid, assign, -1)
     if unbatched:
         assign, solve_ok = assign[0], solve_ok[0]
     return (assign, solve_ok) if with_quality else assign

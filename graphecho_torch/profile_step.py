@@ -20,9 +20,12 @@ steady step time, the peak device memory of the timed steps, the device's
 busy time per step (the union of its kernel intervals) and idle share, the
 number of kernel launches per step, the kNN-graph kernel's and the
 pairwise-MLP kernels' launches and device time per step, the host time in
-each phase of the step, and the 40 kernel names and host ops (by the
-kernels each launched itself) with the most device time. It needs a CUDA
-device and fails without one.
+each phase of the step; by the innermost `step.*` span open at the time
+(`by_span`), the device's idle time, the CUDA launch calls and the
+host-device synchronisations per step; every CUDA API call
+by name; and the 40 kernel names and host ops (by the kernels each launched
+itself) with the most device time. It needs a CUDA device and fails
+without one.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import os
 import re
 import statistics
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -43,6 +46,7 @@ from graphecho_torch.data.synthetic import SyntheticEchoData
 from graphecho_torch.device import deterministic_algorithms
 from graphecho_torch.models.vig import pvig_s
 from graphecho_torch.train.trainer import Trainer
+from graphecho_torch.utils.profiling import innermost_spans
 
 
 def _batch_8_8(cfg: ExperimentConfig) -> ExperimentConfig:
@@ -66,6 +70,12 @@ SERVE_RECIPES = ("serve_float32", "serve_bfloat16", "serve_int8")
 # script too
 PAIRWISE_KERNELS = ("pairwise_fwd_kernel", "pairwise_bwd_kernel", "pairwise_finish_kernel",
                     "fwd_kernel", "bwd_da_kernel", "bwd_db_kernel", "finish_kernel")
+# CUDA API calls (`cuda*`, `cu*`) that put work on a stream (cuDNN's batch
+# norms launch cooperative kernels), and those that make the host wait for
+# the card
+LAUNCH_CALLS = re.compile(r"cudaLaunchKernel|cudaLaunchCooperativeKernel|cuLaunchKernel"
+                          r"|cudaMemcpy\w*Async|cudaMemset\w*Async")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
 def kernel_base_name(name: str) -> str:
@@ -90,6 +100,45 @@ def _busy_us(intervals: List[Tuple[float, float]]) -> float:
         total += e - max(s, end)
         end = e
     return total
+
+
+def by_span(spans: Sequence[Tuple[float, float, str]],
+            calls: Sequence[Tuple[float, float, str]],
+            busy: Sequence[Tuple[float, float]]) -> Dict[str, Dict]:
+    """The device's idle time, the launch calls (`LAUNCH_CALLS`) and the
+    synchronisations (`SYNC_CALLS`) of a trace, by the innermost span open
+    at the time (`utils/profiling.py::innermost_spans`): an idle stretch by
+    the span open at its middle, a call by the span open at its start,
+    whatever thread made it. `spans` are the step's (start, end, name),
+    `calls` the CUDA API calls (start, end, name), `busy` the
+    device events' (start, end), all in µs on the profiler's clock. Only
+    what lies between the first span's start and the last one's end counts,
+    so the synchronisations that open and close a traced window are left
+    out. Returns {"idle_us": {span: µs}, "launches": {span: count},
+    "syncs": {span: [count, host µs]}}."""
+    out: Dict[str, Dict] = {"idle_us": {}, "launches": {}, "syncs": {}}
+    if not spans:
+        return out
+    lo, hi = min(s for s, _, _ in spans), max(e for _, e, _ in spans)
+    gaps, end = [], lo
+    for s, e in sorted(busy):
+        if s >= hi:
+            break
+        if s > end:
+            gaps.append((end, s))
+        end = max(end, e)
+    if end < hi:
+        gaps.append((end, hi))
+    for (s, e), name in zip(gaps, innermost_spans([0.5 * (s + e) for s, e in gaps], spans)):
+        out["idle_us"][name] = out["idle_us"].get(name, 0.0) + (e - s)
+    calls = [c for c in calls if lo <= c[0] < hi]
+    for (s, e, call), name in zip(calls, innermost_spans([c[0] for c in calls], spans)):
+        if LAUNCH_CALLS.match(call):
+            out["launches"][name] = out["launches"].get(name, 0) + 1
+        elif call in SYNC_CALLS:
+            n, us = out["syncs"].get(name, [0, 0.0])
+            out["syncs"][name] = [n + 1, us + (e - s)]
+    return out
 
 
 def _step_fn(recipe: str, n: int, **model_options) -> Callable[[int], None]:
@@ -172,13 +221,23 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 40,
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     total_us = sum(by_name.values()) or 1.0
-    # host time in each phase of the step (`record_function` spans of
-    # graphecho_torch.train.steps); a phase that synchronizes waits for the
-    # device inside its span
+    # host time in each phase of the step (`annotate` spans of
+    # graphecho_torch.train.steps and the graph head); a phase that
+    # synchronizes waits for the device inside its span
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    step_spans = [(e.time_range.start, e.time_range.end, e.name) for e in host
+                  if e.name.startswith("step.")]
     spans: Dict[str, float] = {}
-    for e in prof.events():
-        if e.name.startswith("step.") and e.device_type == torch.autograd.DeviceType.CPU:
-            spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for s, e, name in step_spans:
+        spans[name] = spans.get(name, 0.0) + (e - s)
+    calls = [(e.time_range.start, e.time_range.end, e.name) for e in host
+             if e.name.startswith("cu")]
+    # every CUDA API call by name: where the launch calls by
+    # span do not sum to the device events, the one `LAUNCH_CALLS` misses
+    runtime_calls: Dict[str, int] = {}
+    for _, _, name in calls:
+        runtime_calls[name] = runtime_calls.get(name, 0) + 1
+    attributed = by_span(step_spans, calls, intervals)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     # device time by the host op that launched it (its kernels, not its children's)
     by_op: Dict[str, float] = {}
@@ -213,6 +272,13 @@ def profile(recipe: str, steps: int = 5, warmup: int = 2, top: int = 40,
         "pairwise_device_ms": sum(pairwise.values()) / 1e3 / steps,
         "pairwise_device_ms_by_kernel": {k: us / 1e3 / steps for k, us in sorted(pairwise.items())},
         "host_ms_by_phase": {k: us / 1e3 / steps for k, us in sorted(spans.items())},
+        "idle_ms_by_span": {k: us / 1e3 / steps
+                            for k, us in sorted(attributed["idle_us"].items())},
+        "launches_by_span": {k: n / steps for k, n in sorted(attributed["launches"].items())},
+        # [synchronisations, host ms] per step
+        "syncs_by_span": {k: [n / steps, us / 1e3 / steps]
+                          for k, (n, us) in sorted(attributed["syncs"].items())},
+        "runtime_calls_per_step": {k: n / steps for k, n in sorted(runtime_calls.items())},
         "device_ms_by_kernel": [{"name": n[:120], "ms_per_step": us / 1e3 / steps,
                                  "share": us / total_us} for n, us in ranked],
         "device_ms_by_op": [{"name": n[:120], "ms_per_step": us / 1e3 / steps}

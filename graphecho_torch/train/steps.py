@@ -42,7 +42,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
 
 from graphecho_torch.config import ExperimentConfig
 from graphecho_torch.models.backbones import set_batch_norm_group
@@ -56,6 +55,7 @@ from graphecho_torch.train import cycle
 from graphecho_torch.train.losses import bce_with_logits, dice_loss
 from graphecho_torch.train.metrics import confusion_counts
 from graphecho_torch.train.state import DIS_LEVELS, TrainState
+from graphecho_torch.utils.profiling import annotate
 
 
 # the FPN's and the TGCN's compute dtype by `ModelConfig.compute_dtype`; f32
@@ -111,10 +111,17 @@ def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:
     return models
 
 
+def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A batch entry on `device`: the step's copy to the card, in a
+    `step.h2d` span."""
+    with annotate("step.h2d"):
+        return torch.as_tensor(x, dtype=dtype).to(device, non_blocking=True)
+
+
 def to_nchw(x, device: torch.device) -> torch.Tensor:
     """An NHWC batch array -> a float32 NCHW tensor on `device`; leading
     dimensions beyond one (clips of frames) are flattened into the batch."""
-    x = torch.as_tensor(x, dtype=torch.float32).to(device, non_blocking=True)
+    x = to_device(x, device, torch.float32)
     return x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).contiguous()
 
 
@@ -216,7 +223,7 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
             assert all(p.shape[1:] == parts[0].shape[1:] for p in parts), (
                 "fused_fpn_forwards requires same-geometry frames across the "
                 f"source/target/temporal branches, got {[tuple(p.shape) for p in parts]}")
-            with record_function("step.fpn_fused"):
+            with annotate("step.fpn_fused"):
                 preds_cat, feats_cat, sizes = fpn_call(fpn, parts)
             # the clip halves are adjacent: one piece
             sizes = sizes[:2] + ([sum(sizes[2:])] if t.temporal_graph else [])
@@ -224,7 +231,7 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
                                  zip(*(f.split(sizes) for f in feats_cat))))
             pred_s, feats_s = fused_out[0]
         else:
-            with record_function("step.fpn_source"):
+            with annotate("step.fpn_source"):
                 pred_s, feats_s, _ = fpn_call(fpn, [to_nchw(batch["imgs_source"], dev)])
         losses["seg_loss"] = seg_supervision(pred_s, masks)
 
@@ -234,24 +241,25 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
             if fused:
                 pred_t, feats_t = fused_out[1]
             else:
-                with record_function("step.fpn_target"):
+                with annotate("step.fpn_target"):
                     pred_t, feats_t, _ = fpn_call(fpn, [to_nchw(batch["imgs_target"], dev)])
-            with record_function("step.sampling"):
+            with annotate("step.sampling"):
                 # target pseudo-labels: sigmoid(pred) > class_threshold
                 # (`train_camus_echo.py:219`)
-                with torch.no_grad():
+                with torch.no_grad(), annotate("step.nodes.boxes"):
                     score_maps = (torch.sigmoid(pred_t) > sampler.class_threshold).float()
                     boxes_s = masks_to_boxes(masks[:, :1] if is_camus else masks)
                     boxes_t = masks_to_boxes(score_maps)
-                src = sample_nodes(gm.project_features(_f32(feats_s)), boxes_s, sampler)
-                tgt = sample_nodes(gm.project_features(_f32(feats_t)), boxes_t, sampler)
-            with record_function("step.gmodule"):
+                with annotate("step.nodes.sample"):
+                    src = sample_nodes(gm.project_features(_f32(feats_s)), boxes_s, sampler)
+                    tgt = sample_nodes(gm.project_features(_f32(feats_t)), boxes_t, sampler)
+            with annotate("step.gmodule"):
                 gm_losses, new_seeds, _ = gm(src, tgt, (state.sr_seed, state.tg_seed),
                                              train=True, generator=state.generator)
             new_seeds = tuple(s.detach() for s in new_seeds)
             losses.update(gm_losses)
             if t.discriminator:
-                with record_function("step.discriminators"):
+                with annotate("step.discriminators"):
                     for i, lvl in enumerate(DIS_LEVELS):
                         losses[f"loss_adv_{lvl}"] = cfg.dis.loss_weight * state.dis.module[lvl](
                             feats_s[i].float(), feats_t[i].float())
@@ -262,12 +270,13 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
             if fused:
                 preds_, feats_ = fused_out[2]
             else:
-                with record_function("step.fpn_temporal"):
+                with annotate("step.fpn_temporal"):
                     preds_, feats_, _ = fpn_call(fpn, clip_parts)
             half = bc * tl
-            with record_function("step.sampling_temporal"):
+            with annotate("step.sampling_temporal"):
                 with torch.no_grad():
                     tm = gather(to_nchw(batch["temp_masks"], dev))
+                with torch.no_grad(), annotate("step.nodes.boxes"):
                     # frames with enough mask area supervise the sampling; the
                     # others use the RAW logits as pseudo-masks, boxed as
                     # `mask != 0`, so they degenerate to full-image boxes as in
@@ -281,20 +290,21 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
                     # boxes the raw logits (`train_camus_echo.py:272`)
                     boxes_t2 = masks_to_boxes(
                         (torch.sigmoid(preds_[half:]) > sampler.class_threshold).float())
-                src2 = sample_nodes(gm.project_features(_f32(f[:half] for f in feats_)),
-                                    boxes_s2, sampler)
-                tgt2 = sample_nodes(gm.project_features(_f32(f[half:] for f in feats_)),
-                                    boxes_t2, sampler)
-            with record_function("step.gmodule_temporal"):
+                with annotate("step.nodes.sample"):
+                    src2 = sample_nodes(gm.project_features(_f32(f[:half] for f in feats_)),
+                                        boxes_s2, sampler)
+                    tgt2 = sample_nodes(gm.project_features(_f32(f[half:] for f in feats_)),
+                                        boxes_t2, sampler)
+            with annotate("step.gmodule_temporal"):
                 # the second call starts from the first call's new seeds
                 seeds = new_seeds or (state.sr_seed, state.tg_seed)
                 gm2_losses, new_seeds2, (g1, g2) = gm(src2, tgt2, seeds, train=True,
                                                       generator=state.generator)
             new_seeds = tuple(s.detach() for s in new_seeds2)
-            with record_function("step.tgcn"):
+            with annotate("step.tgcn"):
                 b2 = 2 * bc
                 clips = [f.reshape(b2, tl, *f.shape[1:]) for f in feats_]
-                update_idx = tuple(gather(torch.as_tensor(batch[k]).to(dev, non_blocking=True))
+                update_idx = tuple(gather(to_device(batch[k], dev))
                                    for k in ("update_idx_source", "update_idx_target"))
                 tg_losses, new_queues = state.tgcn.module(
                     clips, g1.nodes.detach(), g1.valid, g2.nodes.detach(), g2.valid,
@@ -306,7 +316,7 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
             extra.update({f"temp_{k}": v for k, v in gm2_losses.items()})
 
         if t.cyc_loss:
-            with record_function("step.cycle"):
+            with annotate("step.cycle"):
                 # layer-4 backbone features summed over space, the network in
                 # train mode, so the 64-frame batch statistics normalize and
                 # move the running stats (`train_cardiac_uda.py:245-253`)
@@ -323,10 +333,10 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
                     for f, s in zip(feat_clips, starts)]).mean()
 
         total = sum(losses.values())
-        with record_function("step.backward"):
+        with annotate("step.backward"):
             total.backward()
         if mesh is not None:
-            with record_function("step.all_reduce"):
+            with annotate("step.all_reduce"):
                 # the FPN's rows differ by rank: its gradients are summed.
                 # Everything after the gather is replicated; its gradients
                 # and the state it updates differ between cards only by the
@@ -337,7 +347,7 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None
                                  (p for m in others for p in m.parameters()),
                                  [*(b for m in others for b in m.buffers()),
                                   *(new_seeds or ()), *(new_queues or ())])
-        with record_function("step.optimizers"):
+        with annotate("step.optimizers"):
             for comp in state.components():
                 comp.apply_gradients(state.step)
         if new_seeds is not None:

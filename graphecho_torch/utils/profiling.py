@@ -1,15 +1,14 @@
-"""Tracing and timing, port of `graphecho_tpu/utils/profiling.py`.
+"""Tracing, port of `graphecho_tpu/utils/profiling.py`.
 
   * `profile_trace(log_dir)`: `torch.profiler` over the block, CPU and (when
     there is a card) CUDA activity, written to `log_dir` as a Chrome trace
     (`trace.json`, loadable in Perfetto or `chrome://tracing`);
   * `annotate(name)`: a named range in that trace (`record_function`), the
     counterpart of the JAX package's `TraceAnnotation`; the train step marks
-    its phases this way (`step.fpn_source`, `step.gmodule`, ...);
-  * `StepTimer`: wall-clock seconds per step with the first steps left out
-    as warm-up. Given the device it times, it synchronises CUDA before it
-    reads the clock at both ends, so a step's time is the device's and not
-    that of the launches alone.
+    its phases and the graph head's parts this way (rules in `annotate`);
+  * `innermost_spans(times, spans)`: the span each instant of a trace falls
+    in; `profile_step` gives idle device time, launches and
+    synchronisations to spans by it.
 
 `python -m graphecho_torch.profile_step` reads the same profiler into a
 per-step breakdown.
@@ -19,11 +18,12 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Optional, Union
+from typing import Iterable, List, Sequence, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+OUTSIDE = "outside spans"
 
 
 @contextlib.contextmanager
@@ -43,46 +43,44 @@ def profile_trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named range in a `profile_trace` (a no-op without a profiler)."""
+    """A named range in a `profile_trace` (a few µs and no device work
+    without a profiler). Every span of the train step opens through here,
+    under these rules:
+
+      * its name begins with `step.`: trace readers collect the program's
+        spans by that prefix, and keep their device-side copies out of the
+        device's kernels and busy time;
+      * readers sum the host time of the graph head's phases, every name
+        that begins with `step.sampling` or `step.gmodule` or is
+        `step.tgcn`; a span inside them under such a name would count
+        twice, so the GModule's parts are `step.gm.*`, the TGCN's
+        `step.tg.*`, the node sampling's `step.nodes.*` and the batch's
+        copies to the card `step.h2d`;
+      * no span opens inside a loop body (a Lanczos, k-means or Sinkhorn
+        iteration, a TGCN frame): a step opens a few dozen;
+      * no span keeps a host clock of its own: the profiler's timeline,
+        shared with the device events, is the one clock."""
     return record_function(name)
 
 
-class StepTimer:
-    """Rolling per-step timing that leaves out the first `warmup` steps (the
-    kernel builds and cuDNN's autotuning)."""
-
-    def __init__(self, warmup: int = 2, device: Optional[Union[str, torch.device]] = None):
-        self.warmup = warmup
-        self.device = None if device is None else torch.device(device)
-        self.count = 0
-        self.total = 0.0
-        self.min = float("inf")
-        self.max = 0.0
-        self._t0: Optional[float] = None
-
-    def _sync(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def __enter__(self):
-        self._sync()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._sync()
-        dt = time.perf_counter() - self._t0
-        self.count += 1
-        if self.count > self.warmup:
-            self.total += dt
-            self.min = min(self.min, dt)
-            self.max = max(self.max, dt)
-        return False
-
-    @property
-    def mean(self) -> float:
-        steady = self.count - self.warmup
-        return self.total / steady if steady > 0 else float("nan")
-
-    def stats(self) -> Dict[str, float]:
-        return {"steps": self.count, "mean_s": self.mean, "min_s": self.min, "max_s": self.max}
+def innermost_spans(times: Sequence[float], spans: Iterable[Tuple[float, float, str]],
+                    outside: str = OUTSIDE) -> List[str]:
+    """For each instant of `times`, the name of the shortest span
+    (start, end, name) whose [start, end) holds it, the innermost where spans
+    nest, or `outside`. Spans and instants are matched by time alone, so a
+    call made on another thread (autograd's backward) falls in the span the
+    step's thread had open meanwhile."""
+    spans = sorted(spans)
+    out = [outside] * len(times)
+    open_: List[Tuple[float, float, str]] = []  # (end, length, name)
+    j = 0
+    for i in sorted(range(len(times)), key=times.__getitem__):
+        t = times[i]
+        while j < len(spans) and spans[j][0] <= t:
+            s, e, name = spans[j]
+            open_.append((e, e - s, name))
+            j += 1
+        open_ = [o for o in open_ if o[0] > t]
+        if open_:
+            out[i] = min(open_, key=lambda o: o[1])[2]
+    return out

@@ -1,6 +1,6 @@
 """The port's tooling modules against the JAX package's, on the CPU:
 `utils/tools.py` (rank discovery from the environment), `utils/profiling.py`
-(`profile_trace`, `annotate`, `StepTimer`), `utils/metric_wrappers.py` and
+(`profile_trace`, `annotate`), `utils/metric_wrappers.py` and
 `utils/visualize.py` (equal to the JAX package's numpy helpers), and
 `utils/torch_import.py`: upstream-keyed `.pth` files built here from the
 port's FPN (no checkpoint can be downloaded) load into the port bit-equal to
@@ -28,7 +28,7 @@ from graphecho_torch.train.trainer import Trainer
 from graphecho_torch.utils import metric_wrappers as tmw
 from graphecho_torch.utils import tools
 from graphecho_torch.utils import visualize as tvis
-from graphecho_torch.utils.profiling import StepTimer, annotate, profile_trace
+from graphecho_torch.utils.profiling import annotate, profile_trace
 from graphecho_torch.utils.torch_import import fpn_state_from_torch, load_reference_checkpoint
 
 
@@ -73,19 +73,6 @@ def test_tools_reads_the_launchers_environment(env, want, monkeypatch):
 
 
 # ------------------------------------------------------------------ profiling
-def test_step_timer_leaves_out_the_warmup():
-    timer = StepTimer(warmup=1, device="cpu")
-    for seconds in (0.05, 0.01, 0.02):
-        with timer:
-            torch.ones(1)
-            import time
-            time.sleep(seconds)
-    stats = timer.stats()
-    assert stats["steps"] == 3
-    assert 0.01 <= stats["min_s"] <= stats["mean_s"] <= stats["max_s"] < 0.05
-    assert np.isnan(StepTimer(warmup=2).mean)
-
-
 def test_profile_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     x = torch.randn(64, 64)
     with profile_trace(str(tmp_path / "trace")) as prof:
