@@ -46,6 +46,15 @@ Phases, each printing one JSON line:
      whose copies sit at columns 3, 500 and 999, in three key tiles:
      neighbours equal to the plain version's in order with no near-tie
      allowance, the copies of key 3 in column order;
+  3d. spectral: the GModule's spectral seed split (`csrc/spectral.cu`, one
+     launch a call) against its plain version (`ops/spectral.py`'s Lanczos
+     solve and 2-means) on the same card tensors, at the cardiac shape (5
+     classes of 1 seed + 112 nodes, 24 steps), camus's (1 class) and n = 300
+     (the Laplacian read from L2): two-cluster classes whose partition every
+     version must give alike (up to a label swap) with the same `solve_ok`,
+     two runs bit-identical; ms beside the plain version's and the bound,
+     the bytes of the B x n^2 Laplacian (the kernel is latency-bound by its
+     chain of ~30 dependent Lanczos steps);
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
   4b. temporal reference: the same with the temporal branch (momentum-queue
@@ -207,6 +216,11 @@ KNN_SHAPES = (("0-1", 3136, 196, 80, 9), ("2-3", 784, 196, 160, 9),
 # clips, the 8x8 node grid against the hidden state, 256 channels, k 9
 TGCN_KNN = (8, 64, 64, 256, 9)
 KNN_TIE_TOL = 1e-5
+# what the GModule's seed update gives the spectral kernel: (case, classes,
+# rows = 1 seed + nodes_per_class); the cardiac shape first. Launches a step:
+# two seed banks a GModule call, two calls with the temporal branch
+SPECTRAL_CASES = (("cardiac", 5, 113), ("camus", 1, 113), ("L2 n=300", 5, 300))
+SPECTRAL_A_STEP = 4
 PVIG_S_PARAMS = 27_251_912
 # the cardiac_real fixture: native frames (H, W, frames), non-square as real
 # CardiacUDA frames may be; patients per site (Site_G: 36 give 32 train ids,
@@ -660,6 +674,69 @@ def phase_knn_ties():
     torch.cuda.synchronize()
 
 
+def _spectral_classes(b: int, n: int, gen: torch.Generator):
+    """(points (b, n, 64), valid (b, n)) on the card: per class two Gaussian
+    clusters 12 apart (unit spread), the first row (the seed) in one of them,
+    a third of the classes with a fifth of their rows invalid."""
+    pts = torch.randn(b, n, 64, device="cuda", generator=gen)
+    shift = torch.randn(b, 1, 64, device="cuda", generator=gen)
+    side = torch.rand(b, n, 1, device="cuda", generator=gen) < 0.4
+    pts = pts + side * (12.0 * shift / shift.norm(dim=-1, keepdim=True))
+    valid = torch.ones(b, n, dtype=torch.bool, device="cuda")
+    valid[::3, 1::5] = False
+    return pts, valid
+
+
+def phase_spectral():
+    """The spectral seed split's kernel against its plain version on the
+    card; returns its row of the `kernels` line at the cardiac shape."""
+    from graphecho_torch.ops import spectral
+
+    row = None
+    for i, (name, b, n) in enumerate(SPECTRAL_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        pts, valid = _spectral_classes(b, n, gen)
+        fvalid = valid.float()
+        k = (valid[:, 1:].sum(-1) // 2).clamp_min(1)
+        lap, deg = spectral._laplacian(pts, valid, fvalid, k)
+        m = min(24, n - 1)
+
+        def kernel():
+            return spectral.launch_spectral(lap, deg, fvalid, m, 10, 0.05)
+
+        def plain():
+            fiedler, residual, missed = spectral._fiedler_lanczos(lap, deg, fvalid, m=m,
+                                                                 probe_margin=0.05)
+            return spectral._two_means(fiedler, valid, 10), (residual <= 0.05) & ~missed
+
+        spectral.reset_launch_counts()
+        got, got_ok = kernel()
+        calls = spectral.LAUNCHES["spectral"]
+        check(calls == 1, f"spectral {name}: {calls} launches for one call")
+        want, want_ok = plain()
+        swapped = torch.where(want >= 0, 1 - want, want)
+        rows_differ = int((~((got == want).all(-1) | (got == swapped).all(-1))).sum())
+        deterministic = all(torch.equal(x, y) for x, y in zip((got, got_ok), kernel()))
+        check(deterministic, f"spectral {name}: two runs differ in their bits")
+        check(rows_differ == 0 and torch.equal(got_ok, want_ok),
+              f"spectral {name}: {rows_differ} rows split otherwise than the plain version, "
+              f"solve_ok {got_ok.tolist()} vs {want_ok.tolist()}")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=5)
+        bound_ms, bound_by = bound(2.0 * b * n * n * (m + 6), 4.0 * b * n * n)
+        emit("spectral", case=name, b=b, n=n, m=m, rows_differ=rows_differ,
+             solve_ok=got_ok.tolist(), deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+             launches_per_call=calls, bound_ms=bound_ms, bound_by=bound_by,
+             bound_note="latency-bound: a chain of ~30 dependent Lanczos steps")
+        if row is None:
+            row = {"name": "spectral", "shape": [b, n, m], "route": "cuda",
+                   "source": "graphecho_torch/csrc/spectral.cu", "replaces": None,
+                   "launches": 0, "max_abs_err": rows_differ, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    torch.cuda.synchronize()
+    return row
+
+
 def _tiny_cfg():
     from graphecho_torch import config as C
 
@@ -746,6 +823,7 @@ def phase_temporal_reference():
     from graphecho_torch.models import attention
     from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
+    from graphecho_torch.ops import spectral
     from graphecho_torch.train import cycle
     from graphecho_torch.train.state import create_train_state
     from graphecho_torch.train.steps import build_models, make_train_step
@@ -769,9 +847,10 @@ def phase_temporal_reference():
             queues0 = (state.queue_source.clone(), state.queue_target.clone())
             knn.reset_launch_counts()
             pm.reset_launch_counts()
+            spectral.reset_launch_counts()
             out = make_train_step(cfg)(state, batch)
             metrics[dev] = {k: float(v) for k, v in out.items()}
-            launches[dev] = {**knn.LAUNCHES, **pm.LAUNCHES}
+            launches[dev] = {**knn.LAUNCHES, **pm.LAUNCHES, **spectral.LAUNCHES}
             queues[dev] = (state.queue_source.cpu(), state.queue_target.cpu())
             moved[dev] = _moved_columns(state, queues0)
     finally:
@@ -786,7 +865,8 @@ def phase_temporal_reference():
     for key in ("temporal_graph_loss", "cyc_loss", "tgcn_clustering_loss"):
         check(metrics["cpu"][key] != 0, f"temporal reference: {key} is 0")
     t = cfg.tgcn.clip_shape[0]
-    check(launches["cuda"] == {"knn": t, "pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2}
+    check(launches["cuda"] == {"knn": t, "pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2,
+                               "spectral": SPECTRAL_A_STEP}
           and not any(launches["cpu"].values()),
           f"temporal reference launches: card {launches['cuda']}, CPU {launches['cpu']}")
     # the momentum queues: moved in the batch's columns only, alike on both
@@ -808,16 +888,18 @@ def _drive(entry, **kwargs):
     just after; returns (trainer, launches, seconds)."""
     from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
+    from graphecho_torch.ops import spectral
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pm.reset_launch_counts()
     knn.reset_launch_counts()
+    spectral.reset_launch_counts()
     t0 = time.perf_counter()
     trainer = entry(**kwargs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return trainer, {**pm.LAUNCHES, **knn.LAUNCHES}, seconds
+    return trainer, {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}, seconds
 
 
 def _steady_step_ms(trainer, n: int = 3) -> float:
@@ -913,8 +995,10 @@ def phase_full(card: str):
           f"cardiac_full: temporal_graph_loss {means['temporal_graph_loss']}, "
           f"cyc_loss {means['cyc_loss']}")
     t = cfg.tgcn.clip_shape[0]
-    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
-          f"cardiac_full: launches in one step {launches}, want 2, 2 and {t}")
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t,
+                       "spectral": SPECTRAL_A_STEP},
+          f"cardiac_full: launches in one step {launches}, want 2, 2, {t} and "
+          f"{SPECTRAL_A_STEP}")
     # the batch the entry point drew (its data seed is 123): the queues move
     # in no other columns than its update_idx_* name, and in those only with
     # the momentum queue (the paper's recipe clusters with none)
@@ -945,7 +1029,8 @@ def phase_full(card: str):
     check(math.isfinite(means["temporal_graph_loss"]) and means["temporal_graph_loss"] != 0,
           f"camus_temporal: temporal_graph_loss {means['temporal_graph_loss']}")
     t = trainer.cfg.tgcn.clip_shape[0]
-    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t,
+                       "spectral": SPECTRAL_A_STEP},
           f"camus_temporal: launches in one step {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = _steady_step_ms(trainer, n=2)
@@ -1037,8 +1122,10 @@ def phase_bf16_full(card: str, f32: dict) -> dict:
           f"bf16_full: temporal_graph_loss {means['temporal_graph_loss']}, "
           f"cyc_loss {means['cyc_loss']}")
     t = cfg.tgcn.clip_shape[0]
-    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
-          f"bf16_full: launches in one step {launches}, want 2, 2 and {t}")
+    check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t,
+                       "spectral": SPECTRAL_A_STEP},
+          f"bf16_full: launches in one step {launches}, want 2, 2, {t} and "
+          f"{SPECTRAL_A_STEP}")
     state = trainer.state
     check(state.net.module.dtype == state.tgcn.module.dtype == torch.bfloat16,
           "bf16_full: the FPN or the TGCN does not compute in bf16")
@@ -1097,8 +1184,9 @@ def phase_dp(card: str, f32: dict) -> dict:
                   f"dp: {key} {got} vs the plain step's {want}")
             worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
         t = trainer.cfg.tgcn.clip_shape[0]
-        check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
-              f"dp: launches in one step {launches}, want 2, 2 and {t}")
+        check(launches == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t,
+                           "spectral": SPECTRAL_A_STEP},
+              f"dp: launches in one step {launches}, want 2, 2, {t} and {SPECTRAL_A_STEP}")
         check(all(math.isfinite(d) for d in trainer.last_dices.values()),
               f"dp dice {trainer.last_dices}")
         spread = max_abs_spread(mesh, [p for c in trainer.state.components()
@@ -1371,18 +1459,20 @@ def phase_serve(card: str, ckpts: dict) -> dict:
     (none: it has no hand kernel)."""
     from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
+    from graphecho_torch.ops import spectral
 
     tmp = Path(tempfile.mkdtemp(prefix="serve_"))
     try:
         pm.reset_launch_counts()
         knn.reset_launch_counts()
+        spectral.reset_launch_counts()
         cfg, ckpt = ckpts["camus"]
         _serve_config("camus", cfg, ckpt, card, tmp, full=True, acc_frames=SERVE_BATCH,
                       reps=3, forwards=5)
         cfg, ckpt = ckpts["cardiac"]
         _serve_config("cardiac", cfg, ckpt, card, tmp, full=False, acc_frames=16,
                       reps=2, forwards=1)
-        launches = {**pm.LAUNCHES, **knn.LAUNCHES}
+        launches = {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}
         # train steps launch the pairwise kernels: after the count
         _serve_more_trained(*ckpts["camus"], card)
     finally:
@@ -1583,8 +1673,10 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
         check(spe == 2 and steps == 4, f"cardiac_real: {steps} steps, {spe} an epoch")
         t = trainer.cfg.tgcn.clip_shape[0]
         per_step = {k: v / steps for k, v in launches.items()}
-        check(per_step == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t},
-              f"cardiac_real: launches {launches} in {steps} steps, want 2, 2 and {t} a step")
+        check(per_step == {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": t,
+                           "spectral": SPECTRAL_A_STEP},
+              f"cardiac_real: launches {launches} in {steps} steps, want 2, 2, {t} and "
+              f"{SPECTRAL_A_STEP} a step")
         means = trainer.last_epoch_metrics
         _check_losses(means, "cardiac_real")
         for key in (k for k in means if k.endswith("loss")):
@@ -1670,9 +1762,9 @@ def _rehearsal_cmd(tmp: Path, run: str, name: str, *flags: str):
     and its `CUBLAS_WORKSPACE_CONFIG`; returns (the command, that file)."""
     counts = tmp / f"{name}.launches.json"
     code = ("import atexit, json, os, torch; "
-            "from graphecho_torch.ops import knn, pairwise_mlp as pm; "
+            "from graphecho_torch.ops import knn, pairwise_mlp as pm, spectral; "
             f"atexit.register(lambda: open({str(counts)!r}, 'w').write(json.dumps("
-            "{'launches': {**pm.LAUNCHES, **knn.LAUNCHES}, "
+            "{'launches': {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}, "
             "'deterministic_algorithms': torch.are_deterministic_algorithms_enabled(), "
             "'cublas_workspace_config': os.environ.get('CUBLAS_WORKSPACE_CONFIG')}))); "
             "import runpy; runpy.run_module('graphecho_torch.train_rehearsal', run_name='__main__')")
@@ -1774,7 +1866,8 @@ def phase_rehearsal(card: str) -> dict:
             report = json.loads(path.read_text())
             per_step[name] = {k: v / steps[name] for k, v in report.pop("launches").items()}
             determinism[name] = report
-        want = {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": frames}
+        want = {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": frames,
+                "spectral": SPECTRAL_A_STEP}
         check(all(p == want for p in per_step.values()),
               f"rehearsal: launches a step {per_step}, want {want}")
         check(all(d == {"deterministic_algorithms": True, "cublas_workspace_config": ":4096:8"}
@@ -1971,6 +2064,7 @@ def main() -> int:
     knn_row = phase_knn()
     phase_knn_nan()
     phase_knn_ties()
+    spectral_row = phase_spectral()
     phase_reference()
     phase_temporal_reference()
     ckpt_root = Path(tempfile.mkdtemp(prefix="trained_"))
@@ -1989,6 +2083,7 @@ def main() -> int:
     phase_tools(card)
     rehearsal = phase_rehearsal(card)
     rows["knn"] = knn_row
+    rows["spectral"] = spectral_row
     # launches per cardiac_full step, the train step's path; beside them each path's
     for name, row in rows.items():
         row["launches"] = full["launches"][name]

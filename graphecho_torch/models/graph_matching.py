@@ -351,8 +351,8 @@ class GModule(nn.Module):
             edges_1 = edges_2 = nodes_s.new_zeros((g1.nodes.shape[0],) * 2)
 
         # seed bank EMA update, kept only when the gate is open (a select,
-        # not a branch); the spectral solve's `eigh` synchronises the host
-        # with the card (`ops/spectral.py`)
+        # not a branch); on a card the spectral split is one kernel launch
+        # (`ops/spectral.py`)
         sr_seed, tg_seed = seeds
         gate = enough > 0
         with annotate("step.gm.seed_update"):

@@ -21,17 +21,35 @@ back to the plain mean. See the JAX module for the full argument.
 
 Every function takes a leading batch axis (one row per class, the JAX
 package's `vmap`), or none.
+
+For a CUDA tensor, everything after the Laplacian build of
+`solver="lanczos"` (steps 3-4) is the hand-written kernel of
+`csrc/spectral.cu`: one launch a call, no host synchronisation. The plain
+version below runs for a CPU tensor, and for `solver="eigh"`. There is no
+fallback from one to the other: a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from graphecho_torch.ops import cuda_build
 from graphecho_torch.utils.profiling import annotate
 
 _BIG_RITZ = 1e3  # dead Krylov slots are parked above the spectrum
+
+# launches of the kernel entry point since the last `reset_launch_counts()`
+LAUNCHES: Dict[str, int] = {"spectral": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
@@ -129,6 +147,108 @@ def _fiedler_lanczos(lap: torch.Tensor, deg: torch.Tensor, fvalid: torch.Tensor,
     return torch.einsum("bmn,bm->bn", q_mat, s[:, :, 0]), residual, missed_lower
 
 
+def _laplacian(points: torch.Tensor, valid: torch.Tensor, fvalid: torch.Tensor,
+               k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lap (B, n, n), deg (B, n)): the symmetrized kNN graph's normalized
+    Laplacian, invalid rows pushed up the spectrum."""
+    n = points.shape[1]
+    eye = torch.eye(n, dtype=torch.bool, device=points.device)
+    pair_valid = valid[:, :, None] & valid[:, None, :]
+    d = torch.where(pair_valid, _pairwise_sq_dists(points), 1e9)
+    d = torch.where(eye, 1e9, d)  # exclude self from the kNN
+    # rank-based kNN via a double stable argsort, as the JAX package does
+    order = torch.argsort(d, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    a = ((rank < k[:, None, None]) & pair_valid).to(points.dtype)
+    a = 0.5 * (a + a.transpose(1, 2))
+
+    deg = a.sum(-1)
+    inv_sqrt = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), 0.0)
+    lap = eye.to(points.dtype) - inv_sqrt[:, :, None] * a * inv_sqrt[:, None, :]
+    return lap + torch.diag_embed(10.0 * (1.0 - fvalid)), deg
+
+
+def _two_means(fiedler: torch.Tensor, valid: torch.Tensor, iters: int) -> torch.Tensor:
+    """1-D 2-means on the Fiedler values of the valid entries, from (min,
+    max): (B, n) in {0, 1}, -1 on invalid rows."""
+    vmin = torch.where(valid, fiedler, float("inf")).amin(-1)
+    vmax = torch.where(valid, fiedler, float("-inf")).amax(-1)
+    centers = torch.stack([vmin, vmax], dim=-1)
+    for _ in range(iters):
+        assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
+        member = [(assign == c) & valid for c in (0, 1)]
+        sums = torch.stack([torch.where(mb, fiedler, 0.0).sum(-1) for mb in member], -1)
+        cnts = torch.stack([mb.to(fiedler.dtype).sum(-1) for mb in member], -1)
+        centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
+    assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
+    return torch.where(valid, assign, -1)
+
+
+# -------------------------------------------------------------------- the kernel
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("spectral")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spectral_bipartition.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.spectral_bipartition.restype = ctypes.c_int
+    for name in ("spectral_max_n", "spectral_max_steps", "spectral_detail_width"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _limits() -> Tuple[int, int, int]:
+    """(the most rows n, the most Lanczos steps m, the detail's width per row)
+    of the kernel."""
+    lib = _lib()
+    return lib.spectral_max_n(), lib.spectral_max_steps(), lib.spectral_detail_width()
+
+
+def launch_spectral(lap: torch.Tensor, deg: torch.Tensor, fvalid: torch.Tensor, m: int,
+                    kmeans_iters: int = 10, ritz_tol: float = 0.05, detail: bool = False):
+    """The kernel of `csrc/spectral.cu` on (B, n, n) Laplacians with their
+    degrees and validity (B, n), all contiguous float32 on one card: m
+    Lanczos steps, the probe, the Ritz vector and `kmeans_iters` rounds of
+    2-means, in one launch on the current stream, with no synchronisation.
+    Returns (assign (B, n) int64, -1 on invalid rows; solve_ok (B,) bool),
+    as the plain path of `spectral_bipartition` does. With `detail`, also
+    the Ritz vector (B, n) and, per row, (theta, residual, the probe's
+    theta, probe live, missed lower, live steps) (B, 6) float32."""
+    dev = lap.get_device()  # -1 on the CPU
+    for t in (lap, deg, fvalid):
+        if (dev < 0 or t.get_device() != dev or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError("the spectral kernel takes contiguous float32 tensors on one CUDA "
+                             f"device, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    if lap.dim() != 3 or lap.shape[1] != lap.shape[2] or deg.shape != lap.shape[:2] \
+            or fvalid.shape != lap.shape[:2]:
+        raise ValueError(f"shape mismatch: lap {tuple(lap.shape)}, deg {tuple(deg.shape)}, "
+                         f"fvalid {tuple(fvalid.shape)}")
+    b, n = deg.shape
+    max_n, max_m, width = _limits()
+    if not (1 <= n <= max_n and 1 <= m <= max_m and b >= 1 and kmeans_iters >= 0):
+        raise ValueError(f"the spectral kernel takes 1 <= n <= {max_n}, 1 <= m <= {max_m}, "
+                         f"B >= 1, kmeans_iters >= 0; got B={b}, n={n}, m={m}, "
+                         f"kmeans_iters={kmeans_iters}")
+    assign = torch.empty((b, n), dtype=torch.int64, device=lap.device)
+    solve_ok = torch.empty(b, dtype=torch.bool, device=lap.device)
+    extra = None
+    if detail:
+        extra = torch.empty((b, n + width), dtype=torch.float32, device=lap.device)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    err = _lib().spectral_bipartition(lap.data_ptr(), deg.data_ptr(), fvalid.data_ptr(),
+                                      assign.data_ptr(), solve_ok.data_ptr(),
+                                      None if extra is None else extra.data_ptr(), b, n, m,
+                                      kmeans_iters, ritz_tol, stream)
+    cuda_build.check(err, "spectral_bipartition")
+    LAUNCHES["spectral"] += 1
+    if detail:
+        return assign, solve_ok, extra[:, :n], extra[:, n:]
+    return assign, solve_ok
+
+
 def spectral_bipartition(points: torch.Tensor, valid: torch.Tensor,
                          kmeans_iters: int = 10, solver: str = "lanczos",
                          k: Optional[torch.Tensor] = None,
@@ -150,48 +270,29 @@ def spectral_bipartition(points: torch.Tensor, valid: torch.Tensor,
     k = k.clamp_min(1)
 
     with annotate("step.gm.laplacian"):
-        eye = torch.eye(n, dtype=torch.bool, device=points.device)
-        pair_valid = valid[:, :, None] & valid[:, None, :]
-        d = torch.where(pair_valid, _pairwise_sq_dists(points), 1e9)
-        d = torch.where(eye, 1e9, d)  # exclude self from the kNN
-        # rank-based kNN via a double stable argsort, as the JAX package does
-        order = torch.argsort(d, dim=-1, stable=True)
-        rank = torch.argsort(order, dim=-1, stable=True)
-        a = ((rank < k[:, None, None]) & pair_valid).to(points.dtype)
-        a = 0.5 * (a + a.transpose(1, 2))
+        lap, deg = _laplacian(points, valid, fvalid, k)
 
-        deg = a.sum(-1)
-        inv_sqrt = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), 0.0)
-        lap = eye.to(points.dtype) - inv_sqrt[:, :, None] * a * inv_sqrt[:, None, :]
-        lap = lap + torch.diag_embed(10.0 * (1.0 - fvalid))
-
-    # on a CUDA card `torch.linalg.eigh` synchronises the host with it: once
-    # for "eigh", twice for "lanczos"
-    with annotate("step.gm.fiedler"):
-        if solver == "lanczos":
-            fiedler, residual, missed_lower = _fiedler_lanczos(
-                lap, deg, fvalid, m=min(lanczos_steps, max(n - 1, 1)),
-                probe_margin=ritz_tol)
-            solve_ok = (residual <= ritz_tol) & ~missed_lower
-        elif solver == "eigh":
-            fiedler = torch.linalg.eigh(lap)[1][:, :, 1]  # second-smallest
-            solve_ok = torch.ones(bsz, dtype=torch.bool, device=points.device)
-        else:
-            raise ValueError(f"unknown spectral solver {solver!r}")
-
-    # 1-D 2-means on the Fiedler values of the valid entries
-    with annotate("step.gm.kmeans"):
-        vmin = torch.where(valid, fiedler, float("inf")).amin(-1)
-        vmax = torch.where(valid, fiedler, float("-inf")).amax(-1)
-        centers = torch.stack([vmin, vmax], dim=-1)
-        for _ in range(kmeans_iters):
-            assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
-            member = [(assign == c) & valid for c in (0, 1)]
-            sums = torch.stack([torch.where(mb, fiedler, 0.0).sum(-1) for mb in member], -1)
-            cnts = torch.stack([mb.to(points.dtype).sum(-1) for mb in member], -1)
-            centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
-        assign = (fiedler[:, :, None] - centers[:, None, :]).abs().argmin(-1)
-        assign = torch.where(valid, assign, -1)
+    m = min(lanczos_steps, max(n - 1, 1))
+    if solver == "lanczos" and points.is_cuda:
+        # the solve and the 2-means in one kernel launch, no host sync
+        with annotate("step.gm.fiedler"):
+            assign, solve_ok = launch_spectral(lap, deg, fvalid.contiguous(), m, kmeans_iters,
+                                               ritz_tol)
+    else:
+        # on a CUDA card `torch.linalg.eigh` synchronises the host with it:
+        # once for "eigh", twice for "lanczos"
+        with annotate("step.gm.fiedler"):
+            if solver == "lanczos":
+                fiedler, residual, missed_lower = _fiedler_lanczos(
+                    lap, deg, fvalid, m=m, probe_margin=ritz_tol)
+                solve_ok = (residual <= ritz_tol) & ~missed_lower
+            elif solver == "eigh":
+                fiedler = torch.linalg.eigh(lap)[1][:, :, 1]  # second-smallest
+                solve_ok = torch.ones(bsz, dtype=torch.bool, device=points.device)
+            else:
+                raise ValueError(f"unknown spectral solver {solver!r}")
+        with annotate("step.gm.kmeans"):
+            assign = _two_means(fiedler, valid, kmeans_iters)
     if unbatched:
         assign, solve_ok = assign[0], solve_ok[0]
     return (assign, solve_ok) if with_quality else assign
