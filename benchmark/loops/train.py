@@ -191,7 +191,7 @@ def _window_note(intervals: List[float], gc_clock: _GcClock, before, after) -> D
 
 def run(cell) -> Dict[str, Any]:
     from graphecho_torch import config as program_config
-    from graphecho_torch.ops import knn as knn_op, pairwise_mlp
+    from graphecho_torch.ops import knn as knn_op, pairwise_mlp, spectral
     from graphecho_torch.train.trainer import Trainer
 
     traffic = cell.traffic
@@ -278,8 +278,8 @@ def run(cell) -> Dict[str, Any]:
 
         k = int(traffic["trace_steps"])
         traced = [pool[(CHECKED_STEPS + n + i) % len(pool)] for i in range(k)]
-        pairwise_mlp.reset_launch_counts()
-        knn_op.reset_launch_counts()
+        for op in (pairwise_mlp, knn_op, spectral):
+            op.reset_launch_counts()
 
         def traced_steps():
             with torch.profiler.record_function("bench.train_epoch"):
@@ -287,7 +287,8 @@ def run(cell) -> Dict[str, Any]:
 
         summary = trace.profile(traced_steps, ("step.", "bench."))
         summary["units"] = k
-        summary["kernel_launches"] = {**pairwise_mlp.LAUNCHES, **knn_op.LAUNCHES}
+        summary["kernel_launches"] = {**pairwise_mlp.LAUNCHES, **knn_op.LAUNCHES,
+                                      **spectral.LAUNCHES}
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
     del trainer, state, comps
@@ -297,9 +298,10 @@ def run(cell) -> Dict[str, Any]:
     checks = check(cell, ref_mod, ref_cfg, pool, losses, first_grads, deltas, moved, moved1)
     if cell.trace:
         summary.update(step_s=step_s, memory_peak_bytes=memory_peak,
-                       model_flops=work.train_step_flops(ref_cfg),
+                       model_flops=work.train_step_flops(ref_cfg, ref_mod),
                        peak_ops=work.PEAK_OPS[ref_cfg.model.compute_dtype],
-                       kernel_shapes=work.kernel_shapes(ref_cfg))
+                       kernel_shapes=work.kernel_shapes(ref_cfg),
+                       kernel_call_shapes=ref_mod.kernel_call_shapes(ref_cfg))
     return {"attempted": n, "failed": failed,
             "end_to_end": {"step_ms": step_s * 1e3, "setup_s": setup_s},
             "memory_peak_bytes": memory_peak, "summary": summary, "checks": checks}

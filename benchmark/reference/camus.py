@@ -2,4 +2,4 @@
 (ResNet50-quirk FPN, graph matching and discriminators) in float32."""
 
 from benchmark.reference.uda import config  # noqa: F401  (the factories the config names)
-from benchmark.reference.uda.step import TrainReference, build_fpn  # noqa: F401
+from benchmark.reference.uda.step import TrainReference, kernel_call_shapes  # noqa: F401

@@ -2,7 +2,8 @@
 
 Reference `models/fpnseg.py:309-444`:
 
-  * backbone (ResNet50-quirk or VGG16) → 5 levels c1..c5;
+  * backbone (ResNet50-quirk, VGG16, or a module a configuration brings,
+    with `out_channels`) → 5 levels c1..c5;
   * top-down pyramid: `toplayer` 1x1 on c5, three lateral 1x1 convs merged with
     align-corners bilinear `upsample_add`;
   * `features_map = [p2, p3, p4, p5]` taken BEFORE the smooth convs
@@ -19,7 +20,7 @@ gn1/gn2 use eps 1e-6: the JAX package leaves flax's default there
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +33,17 @@ FLAX_GN_EPS = 1e-6
 
 
 class FPN(nn.Module):
-    def __init__(self, num_classes: int = 1, back_bone: str = "resnet",
+    def __init__(self, num_classes: int = 1, back_bone: Union[str, nn.Module] = "resnet",
                  fpn_channels: int = 256, semantic_channels: int = 128,
                  in_channels: int = 1,
                  vgg_spec: Optional[Tuple[Tuple[int, int], ...]] = None):
+        """`back_bone` names one of the two backbones, or is a module that
+        returns five levels c1..c5 (c2 to c5 at strides 4 to 32) and gives
+        their widths as `out_channels`."""
         super().__init__()
-        if back_bone == "resnet":
+        if isinstance(back_bone, nn.Module):
+            self.back_bone = back_bone
+        elif back_bone == "resnet":
             self.back_bone = ResNet50(in_channels)
         elif back_bone == "VGG16":
             self.back_bone = VGG16(in_channels, block_spec=vgg_spec)

@@ -18,7 +18,7 @@ generator seeded alike.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,10 +42,38 @@ def build_fpn(cfg: ExperimentConfig) -> FPN:
                vgg_spec=m.vgg_spec)
 
 
-def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:
-    """The trained components by name: fpn, gmodule, discriminator, tgcn."""
+def kernel_call_shapes(cfg: ExperimentConfig) -> Dict[str, List[Tuple[int, ...]]]:
+    """The calls one train step of the uda experiment `cfg` makes to each
+    hand-written kernel, by the name of the program's launch counter
+    (`LAUNCHES` in `ops/pairwise_mlp.py`, `ops/knn.py`, `ops/spectral.py`),
+    one shape per call: a shape is the arguments of the kernel's work
+    function in `benchmark/work.py`, and a spectral split's (classes,
+    points). Each GModule call (one, and a second with the temporal branch)
+    makes one affinity forward and backward over every class's node slots
+    on both sides with the MLP's 2d hidden width and, with the cluster
+    update, two spectral splits of each class's node slots and its seed;
+    the TGCN makes one kNN graph a clip frame (2 x clips, the node grid
+    against the hidden state, the hidden width, k)."""
+    g, t = cfg.gmodule, cfg.train
+    n = g.num_classes * g.nodes_per_class
+    gm_calls = (1 + int(t.temporal_graph)) if t.graph_matching else 0
+    splits = 2 * gm_calls if g.with_cluster_update and g.spectral_solver == "lanczos" else 0
+    calls = {"pairwise_mlp_fwd": [(n, n, 2 * g.in_channels)] * gm_calls,
+             "pairwise_mlp_bwd": [(n, n, 2 * g.in_channels)] * gm_calls,
+             "spectral": [(g.num_classes, g.nodes_per_class + 1)] * splits}
+    if t.temporal_graph:
+        frames, gh, gw = cfg.tgcn.clip_shape
+        clips = 2 * max(cfg.data.batch_size // 2, 1)
+        calls["knn"] = [(clips, gh * gw, gh * gw, cfg.tgcn.hidden_dim, cfg.tgcn.knn_k)] * frames
+    return {name: c for name, c in calls.items() if c}
+
+
+def build_models(cfg: ExperimentConfig,
+                 fpn_builder: Callable[[ExperimentConfig], nn.Module]) -> Dict[str, nn.Module]:
+    """The trained components by name: fpn (from `fpn_builder`), gmodule,
+    discriminator, tgcn."""
     t = cfg.train
-    models: Dict[str, nn.Module] = {"fpn": build_fpn(cfg)}
+    models: Dict[str, nn.Module] = {"fpn": fpn_builder(cfg)}
     if t.graph_matching:
         models["gmodule"] = GModule(cfg.gmodule)
     if t.discriminator:
@@ -115,12 +143,17 @@ def to_nchw(x, device: torch.device) -> torch.Tensor:
 
 class TrainReference:
     """The models, their optimizers and the step's state (seed banks,
-    queues, generator), advanced one step at a time by `step(batch)`."""
+    queues, generator), advanced one step at a time by `step(batch)`.
+
+    The FPN comes from `build_fpn`; a configuration whose model is another
+    FPN subclasses this class and sets `build_fpn` to its own builder."""
+
+    build_fpn = staticmethod(build_fpn)
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device):
         self.cfg = cfg
         self.device = device
-        self.models = {k: m.to(device) for k, m in build_models(cfg).items()}
+        self.models = {k: m.to(device) for k, m in build_models(cfg, self.build_fpn).items()}
         comp_cfg = {"fpn": cfg.train.net, "gmodule": cfg.train.gmn,
                     "discriminator": cfg.train.dis, "tgcn": cfg.train.tgcn}
         self.opts = {k: Optimizer(m, comp_cfg[k]) for k, m in self.models.items()}

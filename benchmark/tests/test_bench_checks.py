@@ -12,7 +12,7 @@ from benchmark import run
 from benchmark.faults import FAULTS as FAULTS_BY_LOOP
 from benchmark.tests.tiny import tiny_cell
 
-CELLS = ["cardiac.full-f32", "camus.paper-f32"]
+CELLS = ["cardiac.full-f32", "camus.paper-f32", "camus.temporal-f32"]
 
 
 @pytest.mark.parametrize("workload", CELLS)

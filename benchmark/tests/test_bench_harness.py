@@ -41,7 +41,7 @@ def test_a_new_config_mix_and_metric_are_found_without_an_edit(tmp_path):
     (b / "reference" / "mini.py").write_text((b / "reference" / "camus.py").read_text())
     mix = json.loads((b / "traffic" / "paper-f32.json").read_text())
     mix["overrides"]["data"] = {"target_batch_mult": 1}
-    (b / "traffic" / "temporal-f32.json").write_text(json.dumps(mix))
+    (b / "traffic" / "mini-temporal-f32.json").write_text(json.dumps(mix))
     (b / "limits" / "mini.temporal-f32.json").write_text(
         (b / "limits" / "camus.paper-f32.json").read_text())
     (b / "metrics" / "train.traced_steps.py").write_text(
@@ -51,7 +51,7 @@ def test_a_new_config_mix_and_metric_are_found_without_an_edit(tmp_path):
                              "file": "benchmark/configs/mini.json", "reduced": [],
                              "why": "test"})
     bench["workloads"].append({"name": "mini.temporal-f32", "config": "mini",
-                               "traffic": "temporal-f32", "chips": 1, "why": "test"})
+                               "traffic": "mini-temporal-f32", "chips": 1, "why": "test"})
     bench["end_to_end"][0]["workloads"].append("mini.temporal-f32")
     bench["per_layer"].append({"name": "train.traced_steps", "unit": "steps",
                                "better": "lower", "source": "program_counter",

@@ -28,7 +28,7 @@ def test_fpn_forward_matches_the_system(config_name, workload):
     traffic = experiment.load_json("traffic", workload.split(".", 1)[1])
     ref_mod = experiment.reference(config_name)
     ours = build_fpn(experiment.build(program_config, conf, traffic, TINY[workload]))
-    ref = ref_mod.build_fpn(experiment.build(ref_mod.config, conf, traffic, TINY[workload]))
+    ref = ref_mod.TrainReference.build_fpn(experiment.build(ref_mod.config, conf, traffic, TINY[workload]))
     for m in (ours, ref):
         m.load_state_dict(weights.make({"fpn": m}, 5, torch.device("cpu"))["fpn"])
     x = torch.rand(2, 1, 64, 64, generator=torch.Generator().manual_seed(0))
@@ -38,7 +38,8 @@ def test_fpn_forward_matches_the_system(config_name, workload):
         torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("workload", ["cardiac.full-f32", "camus.paper-f32"])
+@pytest.mark.parametrize("workload", ["cardiac.full-f32", "camus.paper-f32",
+                                      "camus.temporal-f32"])
 def test_three_train_steps_follow_the_system(workload):
     """Every branch of the step, its random draws and both optimizers: the
     first step's loss and gradients to rounding, the three steps close.

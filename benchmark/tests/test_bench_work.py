@@ -42,8 +42,8 @@ def test_the_cells_kernel_shapes_and_step_flops():
     cfg = experiment.build(ref.config, conf, experiment.load_json("traffic", "full-f32"))
     assert work.kernel_shapes(cfg) == {"pairwise_mlp": (560, 560, 512),
                                        "knn": (8, 64, 64, 256, 9)}
-    f = work.frame_flops(cfg)
+    f = work.frame_flops(cfg, ref)
     # 8 source + 8 target + 64 clip frames through the FPN, 64 through the
     # backbone, 16 through the discriminators, times 3
-    assert work.train_step_flops(cfg) == 3 * (80 * f["fpn"] + 64 * f["backbone"]
+    assert work.train_step_flops(cfg, ref) == 3 * (80 * f["fpn"] + 64 * f["backbone"]
                                               + 16 * f["discriminators"])

@@ -22,6 +22,12 @@ TINY = {
         "model": {"fpn_channels": 32, "semantic_channels": 16},
         "gmodule": {"in_channels": 32, "nodes_per_class": 16},
         "dis": {"in_channels": 32}},
+    "camus.temporal-f32": {
+        "data": {"img_crop": [64, 64], "batch_size": 2, "target_batch_mult": 2},
+        "model": {"fpn_channels": 32, "semantic_channels": 16},
+        "gmodule": {"in_channels": 32, "nodes_per_class": 16},
+        "dis": {"in_channels": 32},
+        "tgcn": {"input_dim": 32, "hidden_dim": 32, "clip_shape": [4, 4, 4]}},
 }
 SEED = 2 ** 31 + 11
 

@@ -1,7 +1,7 @@
 """The yardstick's arithmetic: the data sheet's peaks, the least time a
 kernel could take, the operations and bytes of the two hand-written
 kernels, and the model FLOPs of a train step, counted on the reference
-model.
+model of the configuration (`reference/<name>.py`).
 
 Peaks are NVIDIA's for the H100 SXM, dense, at the full 700 W: 67 TFLOP/s
 in float32 outside the tensor cores (TF32 off), 989 TFLOP/s in bf16,
@@ -10,7 +10,8 @@ less; the result line gives the card's power limit beside the shares."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from types import ModuleType
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -70,6 +71,20 @@ def kernel_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def traced_calls(s: Mapping[str, Any], counter: str) -> Optional[List[Tuple[int, ...]]]:
+    """The shapes of the calls that the traced steps of summary `s` made
+    through the wrapper whose launch counter is `counter`: the
+    configuration's calls a step (its reference module's
+    `kernel_call_shapes`) once for each traced step. None where the configuration lists none, or where their number is
+    not the launches the wrapper counted."""
+    per_step = s.get("kernel_call_shapes", {}).get(counter)
+    launches = s.get("kernel_launches", {}).get(counter, 0)
+    if not per_step or not launches:
+        return None
+    calls = [tuple(c) for c in per_step] * int(s.get("units", 0))
+    return calls if len(calls) == launches else None
+
+
 def _flops(fn, *args) -> int:
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -78,15 +93,17 @@ def _flops(fn, *args) -> int:
     return count.get_total_flops()
 
 
-def frame_flops(cfg) -> Dict[str, int]:
-    """FLOPs (two per multiply-add) of one frame through the reference FPN,
-    its backbone alone, and one frame's four pyramid levels through the
+def frame_flops(cfg, ref_mod: ModuleType) -> Dict[str, int]:
+    """FLOPs (two per multiply-add) of one frame through the FPN that the
+    configuration's reference module `ref_mod` trains
+    (`TrainReference.build_fpn`), its
+    backbone alone, and one frame's four pyramid levels through the
     discriminators, counted on the meta device."""
-    from benchmark.reference.uda.step import DIS_LEVELS, build_fpn
     from benchmark.reference.uda.discriminator import Discriminator
+    from benchmark.reference.uda.step import DIS_LEVELS
 
     with torch.device("meta"):
-        fpn = build_fpn(cfg).eval()
+        fpn = ref_mod.TrainReference.build_fpn(cfg).eval()
         d = cfg.dis
         dis = Discriminator(d.num_convs, d.in_channels, d.grad_reverse_lambda,
                             d.grl_applied_domain)
@@ -99,15 +116,15 @@ def frame_flops(cfg) -> Dict[str, int]:
     return out
 
 
-def train_step_flops(cfg) -> int:
-    """Model FLOPs of one train step of the reference experiment `cfg`: the
-    forward over every frame the step feeds (the FPN over source, target
-    and clip frames, the discriminators over source and target, the
-    backbone over the cycle clip) times 3 for the backward, with no
-    recompute counted. The graph head's node-level work (well under 1% of
-    it) is left out."""
+def train_step_flops(cfg, ref_mod: ModuleType) -> int:
+    """Model FLOPs of one train step of the reference experiment `cfg`, on
+    the FPN of `ref_mod` (as `frame_flops`): the forward over every frame the
+    step feeds (the FPN over source, target and clip frames, the
+    discriminators over source and target, the backbone over the cycle
+    clip) times 3 for the backward, with no recompute counted. The graph
+    head's node-level work (well under 1% of it) is left out."""
     t, d = cfg.train, cfg.data
-    f = frame_flops(cfg)
+    f = frame_flops(cfg, ref_mod)
     src = d.batch_size
     tgt = d.batch_size * d.target_batch_mult if t.graph_matching else 0
     clips = 2 * max(d.batch_size // 2, 1) * cfg.tgcn.clip_shape[0] if t.temporal_graph else 0
