@@ -50,7 +50,9 @@ class ComponentConfig:
 class ModelConfig:
     """FPN segmenter (reference `models/fpnseg.py:309-444`)."""
 
-    backbone: str = "resnet"  # 'resnet' | 'VGG16'
+    # 'resnet' (ResNet50-quirk) | 'VGG16' | 'pvig_s' (Pyramid ViG-S; its
+    # position embedding is sized for `DataConfig.img_crop`, which it needs square)
+    backbone: str = "resnet"
     # INFORMATIONAL: input channel count for documentation/CLI display; flax
     # infers the conv input width from the data, so this is never traced.
     in_channels: int = 1

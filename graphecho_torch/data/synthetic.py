@@ -69,13 +69,14 @@ class SyntheticEchoData:
     """Infinite batch iterator matching the train-step batch contract."""
 
     def __init__(self, cfg, seed: int = 0,
-                 batch_size: Optional[int] = None):
+                 batch_size: Optional[int] = None, bg_channel: Optional[bool] = None):
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
         self.batch_size = batch_size or cfg.data.batch_size
         self.h, self.w = cfg.data.img_crop
         self.n_ch = cfg.model.num_classes
-        self.bg_channel = cfg.model.backbone == "VGG16"  # cardiac has BG ch.
+        # cardiac has BG ch.: the recipe's entry point says; else the JAX package's rule
+        self.bg_channel = cfg.model.backbone == "VGG16" if bg_channel is None else bg_channel
 
     def _frames(self, n: int) -> Tuple[np.ndarray, np.ndarray]:
         imgs = np.zeros((n, self.h, self.w, 1), np.float32)

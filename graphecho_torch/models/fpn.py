@@ -2,7 +2,7 @@
 
 Reference `models/fpnseg.py:309-444`:
 
-  * backbone (ResNet50-quirk or VGG16) → 5 levels c1..c5;
+  * backbone (ResNet50-quirk, VGG16 or Pyramid ViG-S) → 5 levels c1..c5;
   * top-down pyramid: `toplayer` 1x1 on c5, three lateral 1x1 convs merged with
     align-corners bilinear `upsample_add`;
   * `features_map = [p2, p3, p4, p5]` taken BEFORE the smooth convs
@@ -15,6 +15,11 @@ Reference `models/fpnseg.py:309-444`:
 
 gn1/gn2 use eps 1e-6: the JAX package leaves flax's default there
 (`fpn.py:72-75`); torch's and the reference's default is 1e-5.
+
+`back_bone="pvig_s"` is the Pyramid ViG-S of `models/vig.py` at its
+published widths (`pvig_s_224_gelu`, no stochastic graph, no drop-path), its
+position embedding sized for `img_size` frames; it has no remat. Its c1 is
+the stem's map, unused as the other backbones' c1 is.
 
 `dtype=torch.bfloat16` is the JAX FPN's `dtype=jnp.bfloat16` with f32
 parameters: convs compute in bf16, the BatchNorms and GroupNorms in f32 with
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphecho_torch.models.backbones import VGG16, GroupNorm, ResNet50, conv2d, set_compute_dtype
+from graphecho_torch.models.vig import PVIG_S, PyramidViG
 from graphecho_torch.ops.resize import resize_bilinear_align_corners, upsample_add
 
 FLAX_GN_EPS = 1e-6
@@ -41,13 +47,18 @@ class FPN(nn.Module):
                  fpn_channels: int = 256, semantic_channels: int = 128,
                  in_channels: int = 1,
                  vgg_spec: Optional[Tuple[Tuple[int, int], ...]] = None,
-                 remat: bool = False, dtype: Optional[torch.dtype] = None):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None,
+                 img_size: int = 256):
         super().__init__()
         self.dtype = dtype
         if back_bone == "resnet":
             self.back_bone = ResNet50(in_channels, remat=remat, dtype=dtype)
         elif back_bone == "VGG16":
             self.back_bone = VGG16(in_channels, block_spec=vgg_spec, remat=remat, dtype=dtype)
+        elif back_bone == "pvig_s":
+            if remat:
+                raise ValueError("remat: the Pyramid ViG backbone has none")
+            self.back_bone = PyramidViG(**PVIG_S, img_size=img_size, in_channels=in_channels)
         else:
             raise ValueError(f"unknown backbone {back_bone!r}")
         _, c2, c3, c4, c5 = self.back_bone.out_channels

@@ -1,6 +1,11 @@
-"""ViG (Vision GNN) graph convolutions and the standalone DeepGCN classifier,
-port of `graphecho_tpu/models/vig.py` (reference `models/vig.py`, credited to
-ViG / Efficient-AI-Backbones).
+"""ViG (Vision GNN) graph convolutions, the Pyramid ViG backbone and the
+standalone DeepGCN classifier, port of `graphecho_tpu/models/vig.py`
+(reference `models/vig.py`, credited to ViG / Efficient-AI-Backbones).
+
+`PyramidViG` is the stem, the position embedding and the four stages; it
+returns the stem's map and the four stage maps (strides 4, 4, 8, 16, 32),
+the five levels an FPN takes (`models/fpn.py`, `back_bone="pvig_s"`).
+`DeepGCN` is the same module with the classifier head on its last map.
 
 Layout: feature maps are NCHW. A map becomes a node set by flattening (H, W)
 row-major, as the JAX package's `reshape(b, -1, c)` of NHWC does, so a node
@@ -26,12 +31,17 @@ the parameters stay f32. The rest follows the inputs' types as JAX promotes
 them: the f32 position embedding lifts the stem's output to f32, so the
 first stage's residual stream stays f32 until the first Downsample; the kNN
 graph is built on the bf16 nodes with f32 distances (`ops/knn.py`).
+
+Spans (`utils/profiling.annotate`): `step.vig.stem`, `step.vig.down`,
+`step.vig.ffn` around those modules, and `step.vig.grapher` around each
+Grapher, which holds `step.vig.knn` (the graph build) and `step.vig.mrconv`
+(the neighbour gather, the max and the grouped product).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +53,13 @@ from graphecho_torch.models.attention import dropout
 from graphecho_torch.models.backbones import BatchNorm2d, conv2d, set_compute_dtype
 from graphecho_torch.models.initializers import initialize, set_init
 from graphecho_torch.ops.knn import dilated_knn_graph, gather_neighbors
+from graphecho_torch.utils.profiling import annotate
+
+# published sizes of the Pyramid ViGs (`vig.py:655-751`)
+PVIG_TI = {"blocks": (2, 2, 6, 2), "channels": (48, 96, 240, 384)}
+PVIG_S = {"blocks": (2, 2, 6, 2), "channels": (80, 160, 400, 640)}
+PVIG_M = {"blocks": (2, 2, 16, 2), "channels": (96, 192, 384, 768)}
+PVIG_B = {"blocks": (2, 2, 18, 2), "channels": (128, 256, 512, 1024)}
 
 
 # ------------------------------------------------------------ pos embeddings
@@ -262,15 +279,18 @@ class DyGraphConv(nn.Module):
     def forward(self, x: torch.Tensor, relative_pos: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, _, h, w = x.shape
-        y = None
-        if self.r > 1:
-            y = F.avg_pool2d(x, self.r, self.r).flatten(2).transpose(1, 2).contiguous()
-        # (B, N, C), row-major over (H, W); contiguous for the gathers and the kernel
-        nodes = x.flatten(2).transpose(1, 2).contiguous()
-        nn_idx = dilated_knn_graph(nodes, y, self.kernel_size, self.dilation, relative_pos,
-                                   stochastic=self.stochastic and self.training,
-                                   generator=generator)
-        return self.gc(nodes, nn_idx, y).reshape(b, -1, h, w)
+        with annotate("step.vig.knn"):
+            y = None
+            if self.r > 1:
+                y = F.avg_pool2d(x, self.r, self.r).flatten(2).transpose(1, 2).contiguous()
+            # (B, N, C), row-major over (H, W); contiguous for the gathers and the kernel
+            nodes = x.flatten(2).transpose(1, 2).contiguous()
+            nn_idx = dilated_knn_graph(nodes, y, self.kernel_size, self.dilation, relative_pos,
+                                       stochastic=self.stochastic and self.training,
+                                       generator=generator)
+        # the graph conv: for `mr`, the neighbour gather, the max and the grouped product
+        with annotate("step.vig.mrconv"):
+            return self.gc(nodes, nn_idx, y).reshape(b, -1, h, w)
 
 
 class Grapher(nn.Module):
@@ -295,15 +315,17 @@ class Grapher(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        shortcut = x
-        x = self.bn1(self.fc1(x))
-        rel = None
-        if self.relative_pos:
-            n = x.shape[2] * x.shape[3]
-            rel = relative_pos_buffer(self.in_channels, n, n // (self.r * self.r), x.device)
-        x = self.graph_conv(x, rel, generator)
-        x = self.bn2(self.fc2(x))
-        return drop_path(x, self.drop_path_rate, self.training, generator) + shortcut
+        with annotate("step.vig.grapher"):
+            shortcut = x
+            x = self.bn1(self.fc1(x))
+            rel = None
+            if self.relative_pos:
+                n = x.shape[2] * x.shape[3]
+                rel = relative_pos_buffer(self.in_channels, n, n // (self.r * self.r),
+                                          x.device)
+            x = self.graph_conv(x, rel, generator)
+            x = self.bn2(self.fc2(x))
+            return drop_path(x, self.drop_path_rate, self.training, generator) + shortcut
 
 
 class FFN(nn.Module):
@@ -321,9 +343,10 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        shortcut = x
-        x = self.bn2(self.fc2(self.act(self.bn1(self.fc1(x)))))
-        return drop_path(x, self.drop_path_rate, self.training, generator) + shortcut
+        with annotate("step.vig.ffn"):
+            shortcut = x
+            x = self.bn2(self.fc2(self.act(self.bn1(self.fc1(x)))))
+            return drop_path(x, self.drop_path_rate, self.training, generator) + shortcut
 
 
 class Stem(nn.Module):
@@ -343,9 +366,10 @@ class Stem(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.act(self.bn1(self.conv1(x)))
-        x = self.act(self.bn2(self.conv2(x)))
-        return self.bn3(self.conv3(x))
+        with annotate("step.vig.stem"):
+            x = self.act(self.bn1(self.conv1(x)))
+            x = self.act(self.bn2(self.conv2(x)))
+            return self.bn3(self.conv3(x))
 
 
 class Downsample(nn.Module):
@@ -358,24 +382,27 @@ class Downsample(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+        with annotate("step.vig.down"):
+            return self.bn(self.conv(x))
 
 
-class DeepGCN(nn.Module):
-    """Pyramid ViG classifier (`vig.py:586-651`): NCHW images -> (B, n_classes)
-    logits. The Grapher of global index `idx` in stage i reduces its keys by
-    [4, 2, 1, 1][i] and dilates by min(idx // 4 + 1, 49 // k). `dtype` reaches
-    every conv and BatchNorm, the head's included."""
+class PyramidViG(nn.Module):
+    """The Pyramid ViG's stem, position embedding and four stages
+    (`vig.py:586-640`): NCHW images -> [stem map, stage 1, 2, 3, 4 maps] at
+    strides 4, 4, 8, 16, 32, whose widths are `out_channels`. The Grapher of
+    global index `idx` in stage i reduces its keys by [4, 2, 1, 1][i] and
+    dilates by min(idx // 4 + 1, 49 // k). The position embedding is
+    (img_size / 4)² and fixes the input's size. `dtype` reaches every conv
+    and BatchNorm."""
 
     def __init__(self, blocks: Sequence[int] = (2, 2, 6, 2),
                  channels: Sequence[int] = (48, 96, 240, 384), k: int = 9,
                  conv: str = "mr", act: str = "gelu", norm: str = "batch", bias: bool = True,
-                 stochastic: bool = False, drop_path_rate: float = 0.0,
-                 dropout: float = 0.0, n_classes: int = 1000, img_size: int = 224,
+                 stochastic: bool = False, drop_path_rate: float = 0.0, img_size: int = 224,
                  in_channels: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.blocks = tuple(blocks)
-        self.act, self.p_dropout = _act(act), dropout
+        self.out_channels = (channels[0], *channels)
         dpr = np.linspace(0, drop_path_rate, sum(blocks))
         max_dilation = 49 // k
         reduce_ratios = [4, 2, 1, 1]
@@ -394,14 +421,12 @@ class DeepGCN(nn.Module):
                     relative_pos=True))
                 setattr(self, f"ffn_{idx}", FFN(ch, ch * 4, ch, act, float(dpr[idx])))
                 idx += 1
-        self.pred_conv1 = conv2d(channels[-1], 1024, 1)
-        self.pred_bn = BatchNorm2d(1024)
-        self.pred_conv2 = conv2d(1024, n_classes, 1)
         set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         x = self.stem(x) + self.pos_embed
+        maps = [x]
         idx = 0
         for i, n_blk in enumerate(self.blocks):
             if i > 0:
@@ -410,15 +435,41 @@ class DeepGCN(nn.Module):
                 x = getattr(self, f"grapher_{idx}")(x, generator)
                 x = getattr(self, f"ffn_{idx}")(x, generator)
                 idx += 1
+            maps.append(x)
+        return maps
+
+
+class DeepGCN(PyramidViG):
+    """Pyramid ViG classifier (`vig.py:586-651`): NCHW images -> (B, n_classes)
+    logits, the `PyramidViG` stages and a pooled 1x1-conv head on the last
+    map. `dtype` reaches every conv and BatchNorm, the head's included."""
+
+    def __init__(self, blocks: Sequence[int] = (2, 2, 6, 2),
+                 channels: Sequence[int] = (48, 96, 240, 384), k: int = 9,
+                 conv: str = "mr", act: str = "gelu", norm: str = "batch", bias: bool = True,
+                 stochastic: bool = False, drop_path_rate: float = 0.0,
+                 dropout: float = 0.0, n_classes: int = 1000, img_size: int = 224,
+                 in_channels: int = 3, dtype: Optional[torch.dtype] = None):
+        super().__init__(blocks, channels, k, conv, act, norm, bias, stochastic,
+                         drop_path_rate, img_size, in_channels)
+        self.act, self.p_dropout = _act(act), dropout
+        self.pred_conv1 = conv2d(channels[-1], 1024, 1)
+        self.pred_bn = BatchNorm2d(1024)
+        self.pred_conv2 = conv2d(1024, n_classes, 1)
+        set_compute_dtype(self, dtype)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = super().forward(x, generator)[-1]
         x = torch.mean(x, dim=(2, 3), keepdim=True)  # adaptive avg pool
         x = self.act(self.pred_bn(self.pred_conv1(x)))
         x = dropout(x, self.p_dropout, self.training, generator)
         return self.pred_conv2(x)[:, :, 0, 0]
 
 
-def _build(blocks, channels, device, seed: int, **kw) -> DeepGCN:
+def _build(sizes, device, seed: int, **kw) -> DeepGCN:
     device = resolve_device(device)  # without a card, raise before building
-    model = DeepGCN(blocks=blocks, channels=channels, **kw)
+    model = DeepGCN(**sizes, **kw)
     initialize(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
@@ -426,19 +477,19 @@ def _build(blocks, channels, device, seed: int, **kw) -> DeepGCN:
 def pvig_ti(device=None, seed: int = 0, **kw) -> DeepGCN:
     """`pvig_ti_224_gelu` (`vig.py:655-676`), random weights from `seed`, on
     CUDA unless `device` names another."""
-    return _build((2, 2, 6, 2), (48, 96, 240, 384), device, seed, **kw)
+    return _build(PVIG_TI, device, seed, **kw)
 
 
 def pvig_s(device=None, seed: int = 0, **kw) -> DeepGCN:
     """`pvig_s_224_gelu` (`vig.py:680-701`)."""
-    return _build((2, 2, 6, 2), (80, 160, 400, 640), device, seed, **kw)
+    return _build(PVIG_S, device, seed, **kw)
 
 
 def pvig_m(device=None, seed: int = 0, **kw) -> DeepGCN:
     """`pvig_m_224_gelu` (`vig.py:705-726`)."""
-    return _build((2, 2, 16, 2), (96, 192, 384, 768), device, seed, **kw)
+    return _build(PVIG_M, device, seed, **kw)
 
 
 def pvig_b(device=None, seed: int = 0, **kw) -> DeepGCN:
     """`pvig_b_224_gelu` (`vig.py:730-751`)."""
-    return _build((2, 2, 18, 2), (128, 256, 512, 1024), device, seed, **kw)
+    return _build(PVIG_B, device, seed, **kw)

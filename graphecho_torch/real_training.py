@@ -29,6 +29,7 @@ Both entry points run on CUDA unless `device` names another device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -203,6 +204,8 @@ def run_cardiac_uda(args, cfg: Optional[ExperimentConfig] = None, device=None) -
             discriminator=not args.no_discriminator,
             temporal_graph=args.temporal_graph,
             cyc_loss=args.cyc_loss)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, backbone=getattr(args, "backbone", "VGG16")))
     _check_multihost(cfg, args.use_mesh)
     d = cfg.data
     view = (d.view_num,)
@@ -284,7 +287,8 @@ def run_cardiac_uda(args, cfg: Optional[ExperimentConfig] = None, device=None) -
 
     trainer = Trainer(cfg, steps_per_epoch=len(src_loader), device=device,
                       use_mesh=args.use_mesh, log_path=_log(args),
-                      checkpoint_dir=args.save_dir, summary_dir=args.log_dir)
+                      checkpoint_dir=args.save_dir, summary_dir=args.log_dir,
+                      drop_bg_channel_in_eval=True)
 
     def batches():
         return _batches(src_loader, cfg, target_iter=tgt_iter,

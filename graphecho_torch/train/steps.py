@@ -64,9 +64,13 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise ValueError for a compute dtype or a mesh size the step cannot
-    take. Every option of the JAX package's step is ported."""
+    """Raise ValueError for a crop, a compute dtype or a mesh size the step
+    cannot take. Every option of the JAX package's step is ported; the
+    Pyramid ViG-S backbone (`pvig_s`) takes square frames (`FPN` names the
+    backbones and refuses remat on the ViG)."""
     m, t = cfg.model, cfg.train
+    if m.backbone == "pvig_s" and cfg.data.img_crop[0] != cfg.data.img_crop[1]:
+        raise ValueError(f"the Pyramid ViG takes square frames, not {cfg.data.img_crop}")
     if m.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {m.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
     if t.mesh_data is not None and t.mesh_data < 1:
@@ -81,7 +85,7 @@ def build_fpn(cfg: ExperimentConfig) -> FPN:
     return FPN(num_classes=m.num_classes, back_bone=m.backbone,
                fpn_channels=m.fpn_channels, semantic_channels=m.semantic_channels,
                in_channels=m.in_channels, vgg_spec=m.vgg_spec, remat=m.remat,
-               dtype=COMPUTE_DTYPES[m.compute_dtype])
+               dtype=COMPUTE_DTYPES[m.compute_dtype], img_size=cfg.data.img_crop[0])
 
 
 def build_models(cfg: ExperimentConfig) -> Dict[str, nn.Module]:

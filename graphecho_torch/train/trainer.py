@@ -110,7 +110,8 @@ class Trainer:
             torch.autograd.set_detect_anomaly(True)
         self.models = build_models(cfg)
         if drop_bg_channel_in_eval is None:
-            # the cardiac variant drops the BG channel (`train_cardiac_uda.py:399-400`)
+            # the cardiac variant drops the BG channel (`train_cardiac_uda.py:399-400`);
+            # the JAX package's rule, where the recipe's entry point does not say
             drop_bg_channel_in_eval = cfg.model.backbone == "VGG16"
         self._train_step = make_train_step(cfg, self.mesh)
         self._eval_step = make_eval_step(cfg, drop_bg_channel_in_eval, self.mesh)

@@ -7,6 +7,9 @@ Mirrors `python train_cardiac_uda.py` (the reference's trainer):
         --root /data/cardiac_uda --infos /data/cardiac_uda/infos.npy \\
         --view-num 4 --save-dir ./result/model --temporal-graph --cyc-loss
 
+`--backbone pvig_s` trains the FPN on a Pyramid ViG-S backbone in place of
+the recipe's VGG16-BN, from random weights.
+
 `python -m graphecho_torch.data.infos --root /data/cardiac_uda` writes the
 infos file. Without --root/--infos it runs on synthetic data (pipeline smoke
 mode). It runs on CUDA unless `--device` names another device. With
@@ -40,6 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained-backbone", default=None,
                    help="torch .pth to initialize the FPN from: torchvision zoo ResNet "
                         "weights or a reference GraphEcho checkpoint")
+    p.add_argument("--backbone", default="VGG16", choices=("VGG16", "pvig_s"),
+                   help="the FPN's backbone: the recipe's VGG16-BN or Pyramid ViG-S")
     p.add_argument("--no-graph-matching", action="store_true")
     p.add_argument("--no-discriminator", action="store_true")
     p.add_argument("--temporal-graph", action="store_true")
@@ -58,7 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.backbone == "pvig_s" and args.pretrained_backbone:
+        parser.error("--pretrained-backbone: no Pyramid ViG checkpoint loads into the FPN; "
+                     "pvig_s starts from random weights")
     init_distributed(args)
     if args.root and args.infos:
         from graphecho_torch.real_training import run_cardiac_uda
@@ -74,7 +83,8 @@ def main(argv=None) -> None:
             view_num=args.view_num,
             graph_matching=not args.no_graph_matching,
             discriminator=not args.no_discriminator,
-            temporal_graph=args.temporal_graph, cyc_loss=args.cyc_loss)
+            temporal_graph=args.temporal_graph, cyc_loss=args.cyc_loss,
+            backbone=args.backbone)
 
 
 if __name__ == "__main__":
