@@ -55,6 +55,15 @@ Phases, each printing one JSON line:
      two runs bit-identical; ms beside the plain version's and the bound,
      the bytes of the B x n^2 Laplacian (the kernel is latency-bound by its
      chain of ~30 dependent Lanczos steps);
+  3e. resize: the FPN's align-corners bilinear resize (`csrc/resize.cu`, the
+     top-down add fused) against `F.interpolate` (plus the add) at each of
+     the 7 resizes of an FPN call, at camus's target call (168 frames, 112^2)
+     and the 64-frame temporal call at 256^2, f32 and bf16, NCHW and
+     channels-last: equal bit for bit in the same strides, two launches
+     alike, one launch a call; ms beside `F.interpolate`'s (`library_ms`)
+     and the bytes bound, and the sum over the call (`resize_fpn_call`).
+     Every train path below counts its resize launches over its steady
+     steps (RESIZE_A_CALL an FPN call);
   4. reference: one train step of a small config on the card against the
      same step on the CPU (plain versions), losses within rtol 1e-3;
   4b. temporal reference: the same with the temporal branch (momentum-queue
@@ -97,7 +106,8 @@ Phases, each printing one JSON line:
      state equal across the group, step ms beside the plain step's;
   6d. serve: the two saved states served by `serve.Predictor` at batch 256,
      the launch counters zeroed before and read after (the serving path
-     launches no hand kernel: 0 of each). camus (ResNet50, 112², one class)
+     launches none of the graph head's kernels: 0 of each; the FPN's resize
+     kernel RESIZE_A_CALL times a forward). camus (ResNet50, 112², one class)
      through `Predictor.from_checkpoint`: bf16, f32 and int8 Predictors on 300
      frames (a ragged second batch), masks of the right shape, bf16 vs f32
      and int8 vs both float masks agreeing on more than 98% of pixels; every
@@ -170,7 +180,8 @@ Then the `kernels` summary line, each kernel at the shape the cardiac_full
 path gives it (launches: per cardiac_full step, and in `launches_by_path` per
 path driven, `cardiac_real step`, `serve`, `bf16 cardiac_full step`, `dp
 cardiac_full step`, `rehearsal step` and the f32 and bf16 pvig_s forwards
-among them), the
+among them; the resize kernel's counted over each path's steady steps, and
+over the rehearsal's whole run, whose evaluations run the FPN too), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not 0;
 without a CUDA device the script exits 1 before printing any result.
@@ -221,6 +232,19 @@ KNN_TIE_TOL = 1e-5
 # two seed banks a GModule call, two calls with the temporal branch
 SPECTRAL_CASES = (("cardiac", 5, 113), ("camus", 1, 113), ("L2 n=300", 5, 300))
 SPECTRAL_A_STEP = 4
+# what one FPN call gives the resize kernel (`csrc/resize.cu`): (input side,
+# output side, channels, with the fused addend) of the three top-down merges,
+# the head's p5, p4 and p3 paths (p3 onto s2) and the 4x logits; at camus's
+# target call (168 frames, 112^2) and the 256^2 temporal call (2 x 4 clips
+# of 8 frames)
+RESIZE_CASES = (
+    ("camus target", 168, ((4, 7, 256, True), (7, 14, 256, True), (14, 28, 256, True),
+                           (4, 28, 256, False), (7, 28, 256, False), (14, 28, 128, True),
+                           (28, 112, 1, False))),
+    ("256^2 temporal call", 64, ((8, 16, 256, True), (16, 32, 256, True), (32, 64, 256, True),
+                                 (8, 64, 256, False), (16, 64, 256, False), (32, 64, 128, True),
+                                 (64, 256, 5, False))))
+RESIZE_A_CALL = 7
 PVIG_S_PARAMS = 27_251_912
 # the cardiac_real fixture: native frames (H, W, frames), non-square as real
 # CardiacUDA frames may be; patients per site (Site_G: 36 give 32 train ids,
@@ -737,6 +761,92 @@ def phase_spectral():
     return row
 
 
+def _resize_library(x, side: int, y=None):
+    """`F.interpolate` (plus `y`): the resize as PyTorch computes it."""
+    import torch.nn.functional as F
+
+    out = F.interpolate(x, size=(side, side), mode="bilinear", align_corners=True)
+    return out if y is None else out + y
+
+
+def _resize_kernel(x, side: int, y=None):
+    """The port's resize (plus `y`) with no autograd: the kernel alone."""
+    from graphecho_torch.ops import resize
+
+    with torch.no_grad():
+        if y is None:
+            return resize.resize_bilinear_align_corners(x, side, side)
+        return resize.upsample_add(x, y)
+
+
+def _resize_a_step(cfg) -> int:
+    """The resize launches of one train step: RESIZE_A_CALL for each FPN
+    call, the source's, the target's with graph matching and the clips'
+    with the temporal branch (the cycle clip runs the backbone alone)."""
+    t = cfg.train
+    return RESIZE_A_CALL * (1 + bool(t.graph_matching) + bool(t.temporal_graph))
+
+
+def phase_resize(card: str):
+    """The FPN's resize kernel against `F.interpolate` (plus the add) at every
+    resize of camus's target call and of the 64-frame 256^2 temporal call,
+    f32 and bf16, NCHW and channels-last: equal bit for bit and in the same
+    strides, two launches alike, one launch a call; ms beside the library's
+    and the bytes bound. Returns the `kernels` row at the 256^2 merge
+    32 -> 64 in NCHW; main() fills in its launches from the paths."""
+    from graphecho_torch.ops import resize
+
+    row = None
+    layouts = (("nchw", torch.contiguous_format), ("channels_last", torch.channels_last))
+    for cell, frames, cases in RESIZE_CASES:
+        for (layout, fmt), dtype in ((lt, d) for lt in layouts
+                                     for d in (torch.float32, torch.bfloat16)):
+            total = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            for i, (n_in, n_out, c, add) in enumerate(cases):
+                gen = torch.Generator(device="cuda").manual_seed(400 + i)
+                x = torch.randn(frames, c, n_in, n_in, device="cuda", generator=gen).to(dtype)
+                x = x.contiguous(memory_format=fmt)
+                y = None
+                if add:
+                    y = torch.randn(frames, c, n_out, n_out, device="cuda",
+                                    generator=gen).to(dtype).contiguous(memory_format=fmt)
+                resize.reset_launch_counts()
+                got = _resize_kernel(x, n_out, y)
+                calls = resize.LAUNCHES["resize"]
+                want = _resize_library(x, n_out, y)
+                differ = int((got != want).sum())
+                strides_alike = all(a == b for a, b, n in zip(got.stride(), want.stride(),
+                                                              got.shape) if n > 1)
+                deterministic = torch.equal(got, _resize_kernel(x, n_out, y))
+                case = f"{n_in}->{n_out} x{c}{' +y' if add else ''}"
+                check(calls == 1 and differ == 0 and strides_alike and deterministic,
+                      f"resize {cell} {case} {dtype} {layout}: {calls} launches, {differ} "
+                      f"elements differ from F.interpolate, strides alike: {strides_alike}, "
+                      f"repeats alike: {deterministic}")
+                ms = cuda_ms(lambda: _resize_kernel(x, n_out, y))
+                library_ms = cuda_ms(lambda: _resize_library(x, n_out, y))
+                # each input and addend byte read once, each output byte written once;
+                # per output 3 multiplies and 3 multiply-adds (and the add)
+                nbytes = x.element_size() * (x.numel() + got.numel() * (2 if add else 1))
+                bound_ms, bound_by = bound((9 + add) * got.numel(), nbytes)
+                for key, v in (("ms", ms), ("library_ms", library_ms), ("bound_ms", bound_ms)):
+                    total[key] += v
+                emit("resize", cell=cell, frames=frames, dtype=str(dtype).removeprefix("torch."),
+                     layout=layout, case=case, elements_differ=differ, deterministic=deterministic,
+                     launches_per_call=calls, ms=ms, library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, roofline_pct=100.0 * bound_ms / ms)
+                if row is None and frames == 64 and (n_in, n_out, add) == (32, 64, True):
+                    row = {"name": "resize", "shape": [frames, c, n_in, n_in, n_out, n_out],
+                           "route": "cuda", "source": "graphecho_torch/csrc/resize.cu",
+                           "replaces": None, "max_abs_err": 0, "ms": ms, "plain_ms": library_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            emit("resize_fpn_call", cell=cell, frames=frames,
+                 dtype=str(dtype).removeprefix("torch."), layout=layout, resizes=len(cases),
+                 **total)
+    torch.cuda.synchronize()
+    return row
+
+
 def _tiny_cfg():
     from graphecho_torch import config as C
 
@@ -752,7 +862,10 @@ def _tiny_cfg():
 
 def phase_reference():
     """One step of a small config on the card (kernels) and on the CPU (plain
-    versions) from the same weights and batch: every loss within rtol 1e-3."""
+    versions) from the same weights and batch: every loss within rtol 1e-3;
+    the resize kernel launched `_resize_a_step` times on the card, never on
+    the CPU."""
+    from graphecho_torch.ops import resize
     from graphecho_torch.train.state import create_train_state
     from graphecho_torch.train.steps import build_models, make_train_step
 
@@ -764,13 +877,15 @@ def phase_reference():
     batch = {"imgs_source": (rng.rand(2, 64, 64, 1) * 0.6).astype(np.float32),
              "imgs_target": (rng.rand(2, 64, 64, 1) * 0.6).astype(np.float32),
              "masks": masks}
-    metrics = {}
+    metrics, resizes = {}, {}
     for dev in ("cpu", "cuda"):
         state = create_train_state(cfg, build_models(cfg), torch.device(dev))
         with torch.no_grad():  # target pseudo-labels far from the 0.5 threshold
             state.net.module.conv3.bias.copy_(torch.tensor([-8.0, 8.0]))
+        resize.reset_launch_counts()
         out = make_train_step(cfg)(state, batch)
         metrics[dev] = {k: float(v) for k, v in out.items()}
+        resizes[dev] = resize.LAUNCHES["resize"]
     worst = 0.0
     for key, want in metrics["cpu"].items():
         got = metrics["cuda"][key]
@@ -779,7 +894,10 @@ def phase_reference():
         worst = max(worst, abs(got - want))
     check(metrics["cpu"]["mat_loss_aff"] > 0,
           "the reference step left the affinity unused")
-    emit("reference", card=metrics["cuda"], cpu=metrics["cpu"], max_abs_diff=worst)
+    check(resizes == {"cpu": 0, "cuda": _resize_a_step(cfg)},
+          f"reference: resize launches {resizes}, want {_resize_a_step(cfg)} on the card")
+    emit("reference", card=metrics["cuda"], cpu=metrics["cpu"], max_abs_diff=worst,
+         resize_launches=resizes["cuda"])
 
 
 def _temporal_batch(cfg, seed: int = 11):
@@ -823,7 +941,7 @@ def phase_temporal_reference():
     from graphecho_torch.models import attention
     from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
-    from graphecho_torch.ops import spectral
+    from graphecho_torch.ops import resize, spectral
     from graphecho_torch.train import cycle
     from graphecho_torch.train.state import create_train_state
     from graphecho_torch.train.steps import build_models, make_train_step
@@ -848,9 +966,11 @@ def phase_temporal_reference():
             knn.reset_launch_counts()
             pm.reset_launch_counts()
             spectral.reset_launch_counts()
+            resize.reset_launch_counts()
             out = make_train_step(cfg)(state, batch)
             metrics[dev] = {k: float(v) for k, v in out.items()}
-            launches[dev] = {**knn.LAUNCHES, **pm.LAUNCHES, **spectral.LAUNCHES}
+            launches[dev] = {**knn.LAUNCHES, **pm.LAUNCHES, **spectral.LAUNCHES,
+                             **resize.LAUNCHES}
             queues[dev] = (state.queue_source.cpu(), state.queue_target.cpu())
             moved[dev] = _moved_columns(state, queues0)
     finally:
@@ -866,7 +986,7 @@ def phase_temporal_reference():
         check(metrics["cpu"][key] != 0, f"temporal reference: {key} is 0")
     t = cfg.tgcn.clip_shape[0]
     check(launches["cuda"] == {"knn": t, "pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2,
-                               "spectral": SPECTRAL_A_STEP}
+                               "spectral": SPECTRAL_A_STEP, "resize": _resize_a_step(cfg)}
           and not any(launches["cpu"].values()),
           f"temporal reference launches: card {launches['cuda']}, CPU {launches['cpu']}")
     # the momentum queues: moved in the batch's columns only, alike on both
@@ -902,20 +1022,26 @@ def _drive(entry, **kwargs):
     return trainer, {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}, seconds
 
 
-def _steady_step_ms(trainer, n: int = 3) -> float:
-    """Median host time of `n` more train steps on pre-made batches."""
+def _steady_step_ms(trainer, what: str, n: int = 3) -> tuple:
+    """Median host time of `n` more train steps on pre-made batches, and the
+    resize kernel's launches a step over them, checked against
+    `_resize_a_step`."""
     from graphecho_torch.data.synthetic import SyntheticEchoData
+    from graphecho_torch.ops import resize
 
     data = SyntheticEchoData(trainer.cfg, seed=7)
     batches = [data.train_batch() for _ in range(n)]
     times = []
+    resize.reset_launch_counts()
     for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer._train_step(trainer.state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    launches, want = resize.LAUNCHES["resize"], n * _resize_a_step(trainer.cfg)
+    check(launches == want, f"{what}: {launches} resize launches in {n} steps, want {want}")
+    return statistics.median(times), launches // n
 
 
 def phase_main(card: str, ckpt_root: Path):
@@ -941,7 +1067,8 @@ def phase_main(card: str, ckpt_root: Path):
     check(launches["pairwise_mlp_fwd"] >= 3 and launches["pairwise_mlp_bwd"] >= 3,
           f"camus: fewer than 3 launches of a kernel in 3 steps: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = _steady_step_ms(trainer)
+    step_ms, resize_a_step = _steady_step_ms(trainer, "camus")
+    launches["resize"] = 3 * resize_a_step
     emit("camus", losses={k: means[k] for k in LOSS_KEYS}, dice=dices, launches=launches,
          run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib,
          card=card, cfg="camus_echo_config()")
@@ -959,7 +1086,7 @@ def phase_main(card: str, ckpt_root: Path):
     check(launches["pairwise_mlp_fwd"] >= 1 and launches["pairwise_mlp_bwd"] >= 1,
           f"cardiac: a kernel never launched: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = _steady_step_ms(trainer, n=2)
+    step_ms, launches["resize"] = _steady_step_ms(trainer, "cardiac", n=2)
     check(all(math.isfinite(d) for d in trainer.last_dices.values()),
           f"cardiac dice {trainer.last_dices}")
     emit("cardiac", losses={k: means[k] for k in LOSS_KEYS}, dice=trainer.last_dices,
@@ -1011,7 +1138,7 @@ def phase_full(card: str):
     check(all(math.isfinite(d) for d in trainer.last_dices.values()),
           f"cardiac_full dice {trainer.last_dices}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = _steady_step_ms(trainer, n=2)
+    step_ms, launches["resize"] = _steady_step_ms(trainer, "cardiac_full", n=2)
     emit("cardiac_full", losses={k: means[k] for k in means if k.endswith("loss")},
          dice=trainer.last_dices, launches=launches, queue_columns_moved=moved,
          run_seconds=seconds, steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
@@ -1033,7 +1160,7 @@ def phase_full(card: str):
                        "spectral": SPECTRAL_A_STEP},
           f"camus_temporal: launches in one step {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = _steady_step_ms(trainer, n=2)
+    step_ms, launches["resize"] = _steady_step_ms(trainer, "camus_temporal", n=2)
     emit("camus_temporal", losses={k: means[k] for k in means if k.endswith("loss")},
          dice=trainer.last_dices, launches=launches, run_seconds=seconds,
          steady_step_ms=step_ms, peak_memory_gib=peak_gib, card=card,
@@ -1134,7 +1261,7 @@ def phase_bf16_full(card: str, f32: dict) -> dict:
     check(all(math.isfinite(d) for d in trainer.last_dices.values()),
           f"bf16_full dice {trainer.last_dices}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = _steady_step_ms(trainer, n=2)
+    step_ms, launches["resize"] = _steady_step_ms(trainer, "bf16_full", n=2)
     dices = trainer.last_dices
     del trainer, state
     torch.cuda.empty_cache()
@@ -1192,7 +1319,7 @@ def phase_dp(card: str, f32: dict) -> dict:
         spread = max_abs_spread(mesh, [p for c in trainer.state.components()
                                        for p in c.module.parameters()])
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_ms = _steady_step_ms(trainer, n=2)
+        step_ms, launches["resize"] = _steady_step_ms(trainer, "dp", n=2)
         emit("dp", backend=dist.get_backend(), world_size=dist.get_world_size(),
              losses={k: means[k] for k in f32["losses"]}, max_rel_loss_diff=worst,
              dice=trainer.last_dices, launches=launches, run_seconds=seconds,
@@ -1455,30 +1582,34 @@ def _serve_config(name: str, cfg, ckpt: str, card: str, tmp: Path, full: bool,
 def phase_serve(card: str, ckpts: dict) -> dict:
     """Serving from the trained checkpoints of phase_main: camus with every
     check, cardiac with the agreement and accumulator checks, then camus
-    trained further. Returns the kernel launches the serving path made
-    (none: it has no hand kernel)."""
+    trained further. Returns the kernel launches the serving path made: none
+    of the graph head's, and the FPN's resize RESIZE_A_CALL times a forward."""
     from graphecho_torch.ops import knn
     from graphecho_torch.ops import pairwise_mlp as pm
-    from graphecho_torch.ops import spectral
+    from graphecho_torch.ops import resize, spectral
 
     tmp = Path(tempfile.mkdtemp(prefix="serve_"))
     try:
         pm.reset_launch_counts()
         knn.reset_launch_counts()
         spectral.reset_launch_counts()
+        resize.reset_launch_counts()
         cfg, ckpt = ckpts["camus"]
         _serve_config("camus", cfg, ckpt, card, tmp, full=True, acc_frames=SERVE_BATCH,
                       reps=3, forwards=5)
         cfg, ckpt = ckpts["cardiac"]
         _serve_config("cardiac", cfg, ckpt, card, tmp, full=False, acc_frames=16,
                       reps=2, forwards=1)
-        launches = {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}
+        head = {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}
+        resizes = resize.LAUNCHES["resize"]
         # train steps launch the pairwise kernels: after the count
         _serve_more_trained(*ckpts["camus"], card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(not any(launches.values()), f"serve: kernel launches {launches}")
-    return launches
+    check(not any(head.values()), f"serve: graph head kernel launches {head}")
+    check(resizes > 0 and resizes % RESIZE_A_CALL == 0,
+          f"serve: {resizes} resize launches, not {RESIZE_A_CALL} a forward")
+    return {**head, "resize": resizes}
 
 
 def _cardiac_volume(seed: int, contour: bool):
@@ -1642,11 +1773,13 @@ def _run_cli(cmd, log: Path, stderr: Path, stop_after=None) -> int:
 def phase_cardiac_real(card: str, synthetic_step_ms: float):
     """The real-data trainer at full width on a CardiacUDA-shaped tree:
     `run_cardiac_uda` with every branch, a save and restore on the card, and
-    a SIGTERMed and resumed CLI run; returns the launches per step."""
+    a SIGTERMed and resumed CLI run; returns the launches per step (the
+    resize kernel's counted over the two steps after the restore)."""
     from graphecho_torch import real_training
     from graphecho_torch import train_cardiac_uda as cli
     from graphecho_torch.data import native
     from graphecho_torch.data.synthetic import SyntheticEchoData
+    from graphecho_torch.ops import resize
     from graphecho_torch.train.checkpoint import CheckpointManager
     from graphecho_torch.train.trainer import Trainer
 
@@ -1711,9 +1844,14 @@ def phase_cardiac_real(card: str, synthetic_step_ms: float):
         differ = _bit_equal(want, got)
         check(not differ, f"cardiac_real: restored state differs in {differ[:5]}")
         batch = SyntheticEchoData(trainer.cfg, seed=7).train_batch()
+        resize.reset_launch_counts()
         losses = [{k: v.item() for k, v in tr._train_step(tr.state, batch).items()}
                   for tr in (trainer, fresh)]
         check(losses[0] == losses[1], f"cardiac_real: a step after restore differs: {losses}")
+        per_step["resize"] = resize.LAUNCHES["resize"] / 2
+        check(per_step["resize"] == _resize_a_step(trainer.cfg),
+              f"cardiac_real: {per_step['resize']} resize launches a step, want "
+              f"{_resize_a_step(trainer.cfg)}")
         del fresh, trainer
         torch.cuda.empty_cache()
 
@@ -1762,9 +1900,10 @@ def _rehearsal_cmd(tmp: Path, run: str, name: str, *flags: str):
     and its `CUBLAS_WORKSPACE_CONFIG`; returns (the command, that file)."""
     counts = tmp / f"{name}.launches.json"
     code = ("import atexit, json, os, torch; "
-            "from graphecho_torch.ops import knn, pairwise_mlp as pm, spectral; "
+            "from graphecho_torch.ops import knn, pairwise_mlp as pm, resize, spectral; "
             f"atexit.register(lambda: open({str(counts)!r}, 'w').write(json.dumps("
-            "{'launches': {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES}, "
+            "{'launches': {**pm.LAUNCHES, **knn.LAUNCHES, **spectral.LAUNCHES, "
+            "**resize.LAUNCHES}, "
             "'deterministic_algorithms': torch.are_deterministic_algorithms_enabled(), "
             "'cublas_workspace_config': os.environ.get('CUBLAS_WORKSPACE_CONFIG')}))); "
             "import runpy; runpy.run_module('graphecho_torch.train_rehearsal', run_name='__main__')")
@@ -1816,11 +1955,14 @@ def phase_rehearsal(card: str) -> dict:
     side by side, SIGTERMed after step 50 and run again to its end. The
     resumed run says it resumed, the loss falls, the dice rises to
     REHEARSAL_DICE and the resumed curve equals the uninterrupted one to the
-    printed digit (`rehearsal_report`); returns the launches per step."""
+    printed digit (`rehearsal_report`); returns the graph head's launches per
+    step and the resize kernel's over the uninterrupted run (its evaluations
+    run the FPN too)."""
     from graphecho_torch import rehearsal_report
     from graphecho_torch.train_rehearsal import recipe_config
 
-    frames = recipe_config("camus_temporal", bf16=True).tgcn.clip_shape[0]
+    cfg = recipe_config("camus_temporal", bf16=True)
+    frames = cfg.tgcn.clip_shape[0]
     torch.cuda.empty_cache()  # the card's memory to the two processes
     tmp = Path(tempfile.mkdtemp(prefix="rehearsal_"))
     try:
@@ -1860,16 +2002,22 @@ def phase_rehearsal(card: str) -> dict:
         check(rc == 0, f"rehearsal: the resumed curve differs: {report.getvalue()}")
         exact, dice_only, _ = rehearsal_report.overlay(rows, res)
         steps = {"straight": epochs * spe, "preempted.1": stop, "preempted.2": epochs * spe - stop}
-        per_step, determinism = {}, {}
+        per_step, resizes, determinism = {}, {}, {}
         for name, path in (("straight", straight_counts), ("preempted.1", stopped_counts),
                            ("preempted.2", resumed_counts)):
             report = json.loads(path.read_text())
-            per_step[name] = {k: v / steps[name] for k, v in report.pop("launches").items()}
+            launches = report.pop("launches")
+            resizes[name] = launches.pop("resize")
+            per_step[name] = {k: v / steps[name] for k, v in launches.items()}
             determinism[name] = report
         want = {"pairwise_mlp_fwd": 2, "pairwise_mlp_bwd": 2, "knn": frames,
                 "spectral": SPECTRAL_A_STEP}
         check(all(p == want for p in per_step.values()),
               f"rehearsal: launches a step {per_step}, want {want}")
+        # train steps and evaluations both run the FPN, RESIZE_A_CALL a forward
+        check(all(n >= steps[name] * _resize_a_step(cfg) and n % RESIZE_A_CALL == 0
+                  for name, n in resizes.items()),
+              f"rehearsal: resize launches {resizes} in {steps} steps and their evaluations")
         check(all(d == {"deterministic_algorithms": True, "cublas_workspace_config": ":4096:8"}
                   for d in determinism.values()),
               f"rehearsal: the module did not make itself deterministic: {determinism}")
@@ -1878,9 +2026,10 @@ def phase_rehearsal(card: str) -> dict:
     emit("rehearsal", recipe="camus_temporal", bf16=True, epochs=epochs, steps_per_epoch=spe,
          sigterm_at_step=REHEARSAL_STOP, curve=rows, resumed_curve=res, rows_equal=exact,
          rows_equal_in_dice_alone=dice_only, launches_per_step=per_step["straight"],
+         resize_launches=resizes,
          seconds={name: sec for name, (_, sec) in runs.items()}, phase_seconds=phase_s,
          caller_set_determinism=False, children_reported=determinism, card=card)
-    return {k: int(v) for k, v in per_step["straight"].items()}
+    return {k: int(v) for k, v in per_step["straight"].items()}, resizes["straight"]
 
 
 def phase_vig_reference():
@@ -1911,12 +2060,13 @@ def phase_vig_reference():
 
 def phase_vig(card: str) -> tuple:
     """pvig_s at full width: eval at batch 4 and 32, one train step's forward
-    and backward at batch 32; returns the kNN launches of the batch-32 eval
-    forward and its images/s."""
+    and backward at batch 32; returns the kNN and resize launches of the
+    batch-32 eval forward (the classifier has no FPN: no resize) and its
+    images/s."""
     import torch.nn.functional as F
 
     from graphecho_torch.models.vig import pvig_s
-    from graphecho_torch.ops import knn
+    from graphecho_torch.ops import knn, resize
 
     model = pvig_s(n_classes=1000).eval()
     n_params = sum(p.numel() for p in model.parameters())
@@ -1928,6 +2078,7 @@ def phase_vig(card: str) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         knn.reset_launch_counts()
+        resize.reset_launch_counts()
         t0 = time.perf_counter()
         with torch.no_grad():
             logits = model(x)
@@ -1935,9 +2086,12 @@ def phase_vig(card: str) -> tuple:
         seconds = time.perf_counter() - t0
         launches = knn.LAUNCHES["knn"]
         check(launches == 12, f"pvig_s eval batch {batch}: {launches} kNN launches, not 12")
+        check(resize.LAUNCHES["resize"] == 0,
+              f"pvig_s eval batch {batch}: {resize.LAUNCHES['resize']} resize launches")
         check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()),
               f"pvig_s eval batch {batch}: logits {tuple(logits.shape)} not finite")
-        evals[batch] = {"knn_launches": launches, "first_forward_s": seconds,
+        evals[batch] = {"knn_launches": launches, "resize_launches": resize.LAUNCHES["resize"],
+                        "first_forward_s": seconds,
                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                         "logits_std": logits.std().item()}
     times = []
@@ -1973,7 +2127,8 @@ def phase_vig(card: str) -> tuple:
          train_batch=32, train_loss=loss.item(), train_knn_launches=launches,
          train_fwd_bwd_s=train_s, train_peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          grad_norm=torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item(), card=card)
-    return evals[32]["knn_launches"], 32 / (eval_ms / 1e3)
+    return ({"knn": evals[32]["knn_launches"], "resize": evals[32]["resize_launches"]},
+            32 / (eval_ms / 1e3))
 
 
 def phase_bf16_vig(card: str, f32_images_per_s: float) -> int:
@@ -1983,9 +2138,10 @@ def phase_bf16_vig(card: str, f32_images_per_s: float) -> int:
     agreement, recorded); steady images/s beside the f32 eval of the vig
     phase. Grapher 0's kNN input (bf16 nodes, bf16 pooled keys, the f32
     relative-position bias) is kept and the kernel held on it at the Grapher
-    0-1 shape (`_knn_on_bf16`). Returns the launches of one forward."""
+    0-1 shape (`_knn_on_bf16`). Returns the kNN and resize launches of one
+    forward."""
     from graphecho_torch.models import vig as vig_mod
-    from graphecho_torch.ops import knn
+    from graphecho_torch.ops import knn, resize
 
     x = torch.randn(32, 3, 224, 224, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(22))
@@ -2000,13 +2156,16 @@ def phase_bf16_vig(card: str, f32_images_per_s: float) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         knn.reset_launch_counts()
+        resize.reset_launch_counts()
         with torch.no_grad():
             logits = model(x)
         torch.cuda.synchronize()
         launches = knn.LAUNCHES["knn"]
+        resizes = resize.LAUNCHES["resize"]
     finally:
         vig_mod.dilated_knn_graph = real
     check(launches == 12, f"bf16 pvig_s eval: {launches} kNN launches, not 12")
+    check(resizes == 0, f"bf16 pvig_s eval: {resizes} resize launches")
     check(logits.dtype == torch.bfloat16 and logits.shape == (32, 1000)
           and bool(torch.isfinite(logits).all()), f"bf16 pvig_s eval: logits {logits.dtype} "
           f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
@@ -2037,7 +2196,7 @@ def phase_bf16_vig(card: str, f32_images_per_s: float) -> int:
          card=card)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return {"knn": launches, "resize": resizes}
 
 
 def main() -> int:
@@ -2065,6 +2224,7 @@ def main() -> int:
     phase_knn_nan()
     phase_knn_ties()
     spectral_row = phase_spectral()
+    resize_row = phase_resize(card)
     phase_reference()
     phase_temporal_reference()
     ckpt_root = Path(tempfile.mkdtemp(prefix="trained_"))
@@ -2081,9 +2241,10 @@ def main() -> int:
     pvig, pvig_images_per_s = phase_vig(card)
     pvig_bf16 = phase_bf16_vig(card, pvig_images_per_s)
     phase_tools(card)
-    rehearsal = phase_rehearsal(card)
+    rehearsal, rehearsal_resizes = phase_rehearsal(card)
     rows["knn"] = knn_row
     rows["spectral"] = spectral_row
+    rows["resize"] = resize_row
     # launches per cardiac_full step, the train step's path; beside them each path's
     for name, row in rows.items():
         row["launches"] = full["launches"][name]
@@ -2092,10 +2253,13 @@ def main() -> int:
                                    "cardiac_real step": real[name],
                                    "serve": serve[name],
                                    "bf16 cardiac_full step": bf16[name],
-                                   "dp cardiac_full step": dp[name],
-                                   "rehearsal step": rehearsal[name]}
-    knn_row["launches_by_path"]["pvig_s forward"] = pvig
-    knn_row["launches_by_path"]["bf16 pvig_s forward"] = pvig_bf16
+                                   "dp cardiac_full step": dp[name]}
+        if name in rehearsal:
+            row["launches_by_path"]["rehearsal step"] = rehearsal[name]
+    resize_row["launches_by_path"]["rehearsal run with its evaluations"] = rehearsal_resizes
+    for name in ("knn", "resize"):
+        rows[name]["launches_by_path"]["pvig_s forward"] = pvig[name]
+        rows[name]["launches_by_path"]["bf16 pvig_s forward"] = pvig_bf16[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

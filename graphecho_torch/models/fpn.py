@@ -108,10 +108,11 @@ class FPN(nn.Module):
         s4 = up(F.relu(self.gn2(self.conv2(p4))))
         s4 = up(F.relu(self.gn1(self.semantic_branch(s4))))
 
-        s3 = up(F.relu(self.gn1(self.semantic_branch(p3))))
         s2 = F.relu(self.gn1(self.semantic_branch(p2)))
+        # s2 + s3 in one pass: the resize of s3 with s2 as its addend
+        s23 = upsample_add(F.relu(self.gn1(self.semantic_branch(p3))), s2)
 
-        logits = self.conv3(s2 + s3 + s4 + s5)
+        logits = self.conv3(s23 + s4 + s5)
         logits = resize_bilinear_align_corners(logits, 4 * h, 4 * w)
         return logits, features_map
 

@@ -16,15 +16,37 @@ runs of a train step differ in their last bits and drift apart over steps
 (and `torch.use_deterministic_algorithms` has no deterministic version of
 either to offer); two matrix products give the same bits every run. On the
 CPU PyTorch's backwards are deterministic and stay as they are.
+
+On a CUDA tensor the align-corners resize's forward is the hand-written
+kernel of `csrc/resize.cu`, and `upsample_add`'s add is fused into it: one
+launch a call, no host synchronisation, the bits of `F.interpolate` (and of
+`F.interpolate(...) + y`), in f32 or bf16, NCHW or channels-last, the
+output in the input's memory format as `F.interpolate`'s is. PyTorch's NCHW
+kernel gives each thread one output pixel and every (frame, channel) pair,
+which leaves the card nearly empty at the FPN's small maps. The CPU and a
+graph being traced for `torch.export` keep `F.interpolate`. The backward is
+the same matrices either way.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch._prims_common import suggest_memory_format
+
+from graphecho_torch.ops import cuda_build
+
+# launches of the kernel entry point since the last `reset_launch_counts()`
+LAUNCHES: Dict[str, int] = {"resize": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,38 +80,108 @@ def adaptive_pool_matrix(out_n: int, in_n: int, device=None) -> torch.Tensor:
 
 
 class _SeparableMap(torch.autograd.Function):
-    """y = forward(x), an NCHW map A x Bᵀ over the last two dims; its
-    gradient Aᵀ g B as two matrix products in f32."""
+    """y = forward(x), an NCHW map A x Bᵀ over the last two dims, or
+    y = forward(x, addend) = A x Bᵀ + addend; the gradient Aᵀ g B as two
+    matrix products in f32, and g itself for the addend."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, forward: Callable[[torch.Tensor], torch.Tensor],
-                rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, forward: Callable[..., torch.Tensor],
+                rows: torch.Tensor, cols: torch.Tensor,
+                addend: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx.save_for_backward(rows, cols)
         ctx.dtype = x.dtype
         ctx.channels_last = x.is_contiguous(memory_format=torch.channels_last)
-        return forward(x)
+        ctx.with_addend = addend is not None
+        return forward(x) if addend is None else forward(x, addend)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        rows, cols = ctx.saved_tensors
-        grad = rows.t() @ (g.float() @ cols)
-        if ctx.channels_last:
-            grad = grad.contiguous(memory_format=torch.channels_last)
-        return grad.to(ctx.dtype), None, None, None
+        grad = None
+        if ctx.needs_input_grad[0]:
+            rows, cols = ctx.saved_tensors
+            grad = rows.t() @ (g.float() @ cols)
+            if ctx.channels_last:
+                grad = grad.contiguous(memory_format=torch.channels_last)
+            grad = grad.to(ctx.dtype)
+        return grad, None, None, None, g if ctx.with_addend else None
 
 
 def _deterministic_backward(x: torch.Tensor) -> bool:
     return x.is_cuda and x.requires_grad and torch.is_grad_enabled()
 
 
+# ------------------------------------------------------------------ the kernel
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("resize")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.resize_bilinear.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, i, p]
+    lib.resize_bilinear.restype = ctypes.c_int
+    return lib
+
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_takes(x: torch.Tensor) -> bool:
+    """Whether the resize of `x` runs the kernel: a CUDA tensor, outside a
+    graph being traced (`torch.export` sees `F.interpolate`)."""
+    return x.is_cuda and type(x) is torch.Tensor and not torch.compiler.is_compiling()
+
+
+def _channels_last(x: torch.Tensor) -> bool:
+    """Whether `F.interpolate` gives x's resize the channels-last layout:
+    x's `suggest_memory_format`, read from the quicker flags where x is
+    dense in one layout and not the other."""
+    channels_last = x.is_contiguous(memory_format=torch.channels_last)
+    if x.is_contiguous() != channels_last:
+        return channels_last
+    return suggest_memory_format(x) == torch.channels_last
+
+
+def _launch(x: torch.Tensor, out_h: int, out_w: int,
+            addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel: `x` (N, C, H, W) on the card resized to (out_h, out_w),
+    plus `addend` (N, C, out_h, out_w) of x's dtype where given, in one launch
+    on the current stream with no synchronisation. The output takes x's
+    memory format; x and the addend are brought to it (no copy where they
+    have it). Raises on a dtype the kernel lacks."""
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the resize kernel takes float32 or bfloat16, not {x.dtype}")
+    channels_last = _channels_last(x)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = x.contiguous(memory_format=fmt)
+    n, c, h, w = x.shape
+    out = (x.new_empty((n, out_h, out_w, c)).permute(0, 3, 1, 2) if channels_last
+           else x.new_empty((n, c, out_h, out_w)))
+    if out.numel() and x.numel():
+        if addend is not None:
+            addend = addend.contiguous(memory_format=fmt)
+        dev = x.get_device()
+        err = _lib().resize_bilinear(x.data_ptr(), None if addend is None else addend.data_ptr(),
+                                     out.data_ptr(), n, c, h, w, out_h, out_w,
+                                     int(x.dtype == torch.bfloat16),
+                                     int(channels_last), dev,
+                                     torch._C._cuda_getCurrentRawStream(dev))
+        cuda_build.check(err, "resize_bilinear")
+        LAUNCHES["resize"] += 1
+    return out
+
+
+def _library(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=True)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear align-corners resize of an NCHW tensor (torch parity)."""
     if x.shape[-2:] == (out_h, out_w):
         return x
-
-    def forward(t: torch.Tensor) -> torch.Tensor:
-        return F.interpolate(t, size=(out_h, out_w), mode="bilinear", align_corners=True)
-
+    if _kernel_takes(x):
+        def forward(t):
+            return _launch(t, out_h, out_w, None)
+    else:
+        def forward(t):
+            return _library(t, out_h, out_w)
     if _deterministic_backward(x):
         h, w = x.shape[-2:]
         return _SeparableMap.apply(x, forward, bilinear_align_corners_matrix(out_h, h, x.device),
@@ -106,8 +198,20 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def upsample_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Upsample `x` to `y`'s spatial size (bilinear, align-corners) and add —
-    the FPN top-down merge (`fpnseg.py:371-388`)."""
-    return resize_bilinear_align_corners(x, y.shape[-2], y.shape[-1]) + y
+    the FPN top-down merge (`fpnseg.py:371-388`). On the card one launch
+    computes the sum where `y` is a plain tensor of the output's shape and
+    x's dtype and device."""
+    out_h, out_w = y.shape[-2:]
+    if (x.shape[-2:] == (out_h, out_w) or not _kernel_takes(x) or type(y) is not torch.Tensor
+            or y.dtype != x.dtype or y.device != x.device
+            or y.shape != (*x.shape[:2], out_h, out_w)):
+        return resize_bilinear_align_corners(x, out_h, out_w) + y
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        h, w = x.shape[-2:]
+        return _SeparableMap.apply(x, lambda t, addend: _launch(t, out_h, out_w, addend),
+                                   bilinear_align_corners_matrix(out_h, h, x.device),
+                                   bilinear_align_corners_matrix(out_w, w, x.device), y)
+    return _launch(x, out_h, out_w, y)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
